@@ -1,0 +1,139 @@
+"""Lie-group operations on SO(3) and SE(3), the part the tracking slice calls.
+
+Counterpart of `orbslam3_tpu/ops/lie.py`.  Rotations are 3x3 float32
+matrices; every function broadcasts over leading batch dimensions.  SE(3)
+is a pair (R, t) with the reference's convention: T_cw maps world to
+camera, x_c = R x_w + t.  Matrix products run in full float32 (the
+package's precision policy), as the JAX code pins Precision.HIGHEST.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+_EPS = 1e-8
+
+
+def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """einsum('...ij,...j->...i')."""
+    return torch.einsum("...ij,...j->...i", A, x)
+
+
+def hat(w: torch.Tensor) -> torch.Tensor:
+    """so(3) hat operator: (..., 3) -> (..., 3, 3) skew matrix."""
+    wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
+    z = torch.zeros_like(wx)
+    return torch.stack([
+        torch.stack([z, -wz, wy], dim=-1),
+        torch.stack([wz, z, -wx], dim=-1),
+        torch.stack([-wy, wx, z], dim=-1),
+    ], dim=-2)
+
+
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of hat: (..., 3, 3) -> (..., 3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
+
+
+def _eye_like(W: torch.Tensor) -> torch.Tensor:
+    return torch.eye(3, dtype=W.dtype, device=W.device).expand(W.shape)
+
+
+def _sin_x_over_x(x2: torch.Tensor) -> torch.Tensor:
+    """sin(x)/x with Taylor fallback, given x^2."""
+    x = torch.sqrt(x2 + _EPS * (x2 < _EPS))
+    return torch.where(x2 < 1e-8, 1.0 - x2 / 6.0, torch.sin(x) / x)
+
+
+def _one_minus_cos_over_x2(x2: torch.Tensor) -> torch.Tensor:
+    """(1-cos x)/x^2 with Taylor fallback, given x^2."""
+    x = torch.sqrt(x2 + _EPS * (x2 < _EPS))
+    return torch.where(x2 < 1e-8, 0.5 - x2 / 24.0,
+                       (1.0 - torch.cos(x)) / (x2 + _EPS))
+
+
+def exp_so3(w: torch.Tensor) -> torch.Tensor:
+    """Rodrigues: so(3) vector (..., 3) -> rotation matrix (..., 3, 3)."""
+    x2 = torch.sum(w * w, dim=-1)[..., None, None]
+    W = hat(w)
+    return _eye_like(W) + _sin_x_over_x(x2) * W + \
+        _one_minus_cos_over_x2(x2) * (W @ W)
+
+
+def log_so3(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> so(3) vector (..., 3).
+
+    Trace formula with a fallback near pi.  The angle comes from
+    atan2(|w_unnorm|, cos) with the double-where guard at zero rotation
+    (lie.py:68): arccos has an infinite derivative at +-1, and keeping the
+    same form keeps the same numbers (and finite gradients later).
+    """
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_t = torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0)
+    w_unnorm = vee(R - R.transpose(-1, -2)) * 0.5  # = sin(theta) * axis
+    s2 = torch.sum(w_unnorm * w_unnorm, dim=-1)
+    small = s2 < 1e-10
+    s2_safe = torch.where(small, torch.ones_like(s2), s2)
+    sin_t = torch.sqrt(s2_safe)
+    theta = torch.atan2(sin_t, cos_t)
+    near_pi = cos_t < math.cos(math.pi - 1e-3)
+    scale = torch.where(small, torch.ones_like(theta), theta / sin_t)
+    w_generic = w_unnorm * scale[..., None]
+    theta_pi = math.pi - torch.asin(
+        torch.clamp(torch.sqrt(s2 + 1e-20), 0.0, 1.0 - 1e-7))
+    B = R + _eye_like(R)
+    d = torch.stack([B[..., 0, 0], B[..., 1, 1], B[..., 2, 2]], dim=-1)
+    k = torch.argmax(d, dim=-1)
+    col = torch.gather(B, -1, k[..., None, None].expand(B.shape[:-1] + (1,)))[..., 0]
+    axis = col / (torch.linalg.norm(col, dim=-1, keepdim=True) + _EPS)
+    sgn = torch.where(torch.sum(axis * w_unnorm, dim=-1, keepdim=True) < 0, -1.0, 1.0)
+    w_pi = axis * sgn * theta_pi[..., None]
+    return torch.where(near_pi[..., None], w_pi, w_generic)
+
+
+def right_jacobian_so3(w: torch.Tensor) -> torch.Tensor:
+    """Right Jacobian Jr(w) of SO(3): d Exp(w+dw) = Exp(w) Exp(Jr dw)."""
+    x2 = torch.sum(w * w, dim=-1)[..., None, None]
+    W = hat(w)
+    x = torch.sqrt(x2 + _EPS * (x2 < _EPS))
+    small = x2 < 1e-8
+    c1 = torch.where(small, 0.5 - x2 / 24.0, (1.0 - torch.cos(x)) / (x2 + _EPS))
+    c2 = torch.where(small, 1.0 / 6.0 - x2 / 120.0,
+                     (x - torch.sin(x)) / (x2 * x + _EPS))
+    return _eye_like(W) - c1 * W + c2 * (W @ W)
+
+
+def left_jacobian_so3(w: torch.Tensor) -> torch.Tensor:
+    """Left Jacobian Jl(w) = Jr(-w)."""
+    return right_jacobian_so3(-w)
+
+
+def normalize_rotation(R: torch.Tensor) -> torch.Tensor:
+    """Re-orthonormalize a near-rotation matrix with two Newton-Schulz
+    polar steps (R <- 1.5 R - 0.5 R R^T R), as the JAX package does."""
+    for _ in range(2):
+        RtR = R.transpose(-1, -2) @ R
+        R = 1.5 * R - 0.5 * (R @ RtR)
+    return R
+
+
+def se3_exp(xi: torch.Tensor):
+    """se(3) -> SE(3).  xi = [rho (trans), phi (rot)], shape (..., 6)."""
+    rho, phi = xi[..., :3], xi[..., 3:]
+    return exp_so3(phi), _mv(left_jacobian_so3(phi), rho)
+
+
+def se3_inverse(R: torch.Tensor, t: torch.Tensor):
+    Rt = R.transpose(-1, -2)
+    return Rt, -_mv(Rt, t)
+
+
+def se3_compose(Ra, ta, Rb, tb):
+    """(Ra, ta) @ (Rb, tb): applies b first, then a."""
+    return Ra @ Rb, _mv(Ra, tb) + ta
+
+
+def se3_apply(R, t, x):
+    return _mv(R, x) + t
