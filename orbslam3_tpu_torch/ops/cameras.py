@@ -59,6 +59,12 @@ def project(model: str, params, xc):
     raise _unported(model)
 
 
+def unproject(model: str, params, uv):
+    if model == PINHOLE:
+        return pinhole_unproject(params, uv)
+    raise _unported(model)
+
+
 def project_jac(model: str, params, xc):
     if model == PINHOLE:
         return pinhole_project_jac(params, xc)

@@ -1,13 +1,16 @@
 """Descriptor matching: masked Hamming nearest neighbour + the projection gate.
 
-Counterpart of `orbslam3_tpu/ops/matching.py` for what the tracking slice
-uses (`match_nn` with mask, distance and ratio gates; `projection_mask`).
-Every strategy is a full (N x M) distance matrix (one unpacked-bit matmul)
-plus a compatibility mask, an argmin and gates.
+Counterpart of `orbslam3_tpu/ops/matching.py` for what tracking and
+mapping use: `match_nn` with its mask, distance, ratio, mutual and
+rotation-histogram gates, `projection_mask` and `epipolar_mask`.  Every
+strategy is a full (N x M) distance matrix (one unpacked-bit matmul) plus a
+compatibility mask, an argmin and gates.
 
 Tie rules kept from JAX: `torch.argmin` returns the first minimum, as
-`jnp.argmin` does; the duplicate-target resolution keys `dist * n + row`
-stay int32 by clamping the distance to 9 bits (matching.py:88-92).
+`jnp.argmin` does; the histogram's top-3 bins use a stable descending sort,
+which keeps the lower bin first as `lax.top_k` does; the duplicate-target
+resolution keys `dist * n + row` stay int32 by clamping the distance to 9
+bits (matching.py:88-92).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from . import brief
 
 TH_LOW = 30   # this fork tightened TH_LOW from upstream's 50
 TH_HIGH = 100
+HISTO_LENGTH = 30
 BIG = 1 << 20
 _I32_MAX = 2 ** 31 - 1
 
@@ -30,13 +34,38 @@ class Matches(NamedTuple):
     valid: torch.Tensor  # (N,) bool
 
 
+def rotation_histogram_filter(rot_deg: torch.Tensor, valid: torch.Tensor,
+                              n_keep: int = 3) -> torch.Tensor:
+    """Keep matches whose relative rotation falls in the top-`n_keep` of
+    HISTO_LENGTH bins (reference ORBmatcher rotation-consistency check)."""
+    # jnp.mod: C remainder, moved into [0, 360) when it has the wrong sign
+    rot = torch.fmod(rot_deg, 360.0)
+    rot = torch.where((rot != 0) & (rot < 0), rot + 360.0, rot)
+    b = torch.round(rot * (HISTO_LENGTH / 360.0)).to(torch.int32)
+    b = torch.where(b == HISTO_LENGTH, 0, b)
+    hist = torch.zeros(HISTO_LENGTH, dtype=torch.int32, device=b.device)
+    hist = hist.index_add(0, b.long(), valid.to(torch.int32))
+    top_counts, top_bins = torch.sort(hist, descending=True, stable=True)
+    top_counts, top_bins = top_counts[:n_keep], top_bins[:n_keep]
+    # reference ComputeThreeMaxima: drop 2nd/3rd maxima below 10% of the 1st
+    keep_bin = top_counts.to(torch.float32) >= 0.1 * top_counts[0]
+    in_top = ((b[:, None] == top_bins[None, :]) & keep_bin[None, :]).any(dim=-1)
+    return valid & in_top
+
+
 def match_nn(desc_a: torch.Tensor, desc_b: torch.Tensor,
              mask: torch.Tensor | None = None,
              max_dist: int = TH_LOW,
-             nn_ratio: float | None = None) -> Matches:
+             nn_ratio: float | None = None,
+             mutual: bool = False,
+             angles_a: torch.Tensor | None = None,
+             angles_b: torch.Tensor | None = None,
+             check_rotation: bool = False) -> Matches:
     """Nearest-neighbour Hamming matching A->B with gates.
 
-    mask: (N, M) bool of allowed pairs; nn_ratio: best < ratio * second.
+    mask: (N, M) bool of allowed pairs; nn_ratio: best < ratio * second;
+    mutual: A must also be B's best; check_rotation: the relative keypoint
+    angles (degrees) must fall in the rotation histogram's top bins.
     A column claimed by several rows goes to the row with the lowest
     (distance, row).
     """
@@ -54,6 +83,11 @@ def match_nn(desc_a: torch.Tensor, desc_b: torch.Tensor,
     valid = best <= max_dist
     if nn_ratio is not None:
         valid &= best.to(torch.float32) < nn_ratio * second.to(torch.float32)
+    if mutual:
+        col_best = torch.argmin(d, dim=0)
+        valid &= col_best[best_idx] == rows
+    if check_rotation:
+        valid = rotation_histogram_filter(angles_a - angles_b[best_idx], valid)
 
     order_key = torch.clamp_max(best, 512) * n + rows.to(torch.int32)
     col_winner = torch.full((m,), _I32_MAX, dtype=torch.int32, device=d.device)
@@ -82,3 +116,17 @@ def projection_mask(uv_proj: torch.Tensor, pred_octave: torch.Tensor,
     oct_ok = (octave_f[None, :] >= (pred_octave - 1)[:, None]) & \
              (octave_f[None, :] <= (pred_octave + 1)[:, None])
     return close & oct_ok & proj_valid[:, None] & kp_valid[None, :]
+
+
+def epipolar_mask(xy_a: torch.Tensor, xy_b: torch.Tensor, F12: torch.Tensor,
+                  sigma2_b: torch.Tensor, chi2_th: float = 3.84) -> torch.Tensor:
+    """Point-to-epipolar-line gate for SearchForTriangulation (reference
+    Pinhole::epipolarConstrain, src/CameraModels/Pinhole.cpp:104: squared
+    line distance < 3.84 * sigma2 of the matched keypoint).  Returns (N, M)."""
+    ones_a = torch.ones((xy_a.shape[0], 1), dtype=xy_a.dtype, device=xy_a.device)
+    lines = torch.cat([xy_a, ones_a], dim=1) @ F12.T   # (N, 3) lines in image b
+    num = lines[:, None, 0] * xy_b[None, :, 0] + \
+        lines[:, None, 1] * xy_b[None, :, 1] + lines[:, None, 2]
+    den = lines[:, 0:1] ** 2 + lines[:, 1:2] ** 2
+    dsqr = (num * num) / (den + 1e-12)
+    return dsqr < chi2_th * sigma2_b[None, :]

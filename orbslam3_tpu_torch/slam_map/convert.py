@@ -2,7 +2,7 @@
 
 numpy in, numpy out; nothing here imports JAX.  A test fills these from
 `jax.device_get(x)._asdict()` so that both sides compute on the same map,
-view or feature frame.  uint32 descriptor words cross as int32 bit
+view, feature frame or feature bank.  uint32 descriptor words cross as int32 bit
 patterns (`.view(np.int32)`), the port's descriptor format.
 """
 
@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..features.extractor import FeatureFrame
+from .feature_bank import FeatureBank
 from .state import MapState, PointView
 
 
@@ -36,6 +37,10 @@ def view_from_numpy(fields: dict, device="cpu") -> PointView:
 
 def frame_from_numpy(fields: dict, device="cpu") -> FeatureFrame:
     return _build(FeatureFrame, fields, device)
+
+
+def bank_from_numpy(fields: dict, device="cpu") -> FeatureBank:
+    return _build(FeatureBank, fields, device)
 
 
 def to_numpy(x):

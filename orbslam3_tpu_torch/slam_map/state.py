@@ -1,8 +1,8 @@
 """Map state as fixed-capacity SoA tensors.
 
-Counterpart of `orbslam3_tpu/slam_map/state.py` for what the tracking
-slice needs: the containers, the append ops, the incidence/covisibility
-queries and the local view.
+Counterpart of `orbslam3_tpu/slam_map/state.py` for what tracking and the
+keyframe step need: the containers, the append ops, the incidence and
+covisibility queries, the local view, point culling and slot compaction.
 
 Functions return a new MapState (as in JAX) and leave their input
 untouched.  Descriptors are int32 bit patterns (see `ops/brief.py`);
@@ -13,6 +13,11 @@ Scatters with JAX's `mode="drop"` (an out-of-range index drops the write)
 go through `_set_drop`: the destination index n means "drop" and lands on
 a scratch row that is cut off afterwards.  That keeps the masking on the
 device; `index_put_` itself would raise on index n.
+
+Where a scatter can name one destination twice, XLA on the CPU applies the
+updates in order, so the last one wins; `index_put_` on CUDA leaves the
+winner unspecified.  `_set_drop_last` keeps XLA's rule explicitly: every
+row but the last one for its destination is dropped first.
 """
 
 from __future__ import annotations
@@ -112,19 +117,53 @@ def empty_map(cap: MapCapacity, device="cpu") -> MapState:
     )
 
 
+def _on(val, dtype, device) -> torch.Tensor:
+    """`val`, a Python scalar or a tensor, as a tensor of `dtype` on
+    `device`.  A Python scalar is filled in by a kernel: `torch.as_tensor`
+    would copy it from the host, and that copy waits for all queued work."""
+    if isinstance(val, torch.Tensor):
+        return val.to(dtype=dtype, device=device)
+    return torch.full((), val, dtype=dtype, device=device)
+
+
+def _row(arr: torch.Tensor, i, dim: int = 0) -> torch.Tensor:
+    """arr.select(dim, i) for a Python int or a 0-d device index, gathered
+    on the device (plain indexing with a 0-d tensor reads the index back
+    to the host first).  An index past the end is clamped, as JAX's gather
+    clamps it."""
+    idx = torch.clamp(_on(i, torch.int64, arr.device), 0, arr.shape[dim] - 1)
+    return arr.index_select(dim, idx.reshape(1)).squeeze(dim)
+
+
 def _set_drop(arr: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
     """arr.at[idx].set(vals, mode="drop") for idx in [0, n]; n drops."""
     n = arr.shape[0]
     ext = torch.cat([arr, arr[:1]])
-    vals = torch.as_tensor(vals, dtype=arr.dtype, device=arr.device)
+    vals = _on(vals, arr.dtype, arr.device)
     ext.index_put_((idx.long(),), vals.expand((idx.shape[0],) + arr.shape[1:]))
     return ext[:n]
 
 
+def _last_rows(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """(B,) bool: row b is the last row of `idx` (values in [0, n]) that
+    names its destination."""
+    rows = torch.arange(idx.shape[0], device=idx.device)
+    last = torch.full((n + 1,), -1, dtype=torch.int64, device=idx.device)
+    last = last.scatter_reduce(0, idx.long(), rows, "amax", include_self=True)
+    return last[idx.long()] == rows
+
+
+def _set_drop_last(arr: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
+    """`_set_drop` where duplicate destinations keep the last row's value."""
+    n = arr.shape[0]
+    return _set_drop(arr, torch.where(_last_rows(idx, n), idx, n), vals)
+
+
 def _set_at(arr: torch.Tensor, i: torch.Tensor, val) -> torch.Tensor:
-    """arr.at[i].set(val) for a 0-d device index; i == len(arr) drops."""
+    """arr.at[i].set(val) for a Python int or a 0-d device index; i ==
+    len(arr) drops."""
     hit = torch.arange(arr.shape[0], device=arr.device) == i
-    val = torch.as_tensor(val, dtype=arr.dtype, device=arr.device)
+    val = _on(val, arr.dtype, arr.device)
     return torch.where(hit.reshape((-1,) + (1,) * (arr.dim() - 1)), val, arr)
 
 
@@ -196,7 +235,7 @@ def add_observations(m: MapState, kf_idx, pt_idx, uv, octave,
     dev = pt_idx.device
     if ur is None:
         ur = torch.full((B,), -1.0, dtype=torch.float32, device=dev)
-    kf_arr = torch.as_tensor(kf_idx, dtype=torch.int32, device=dev).expand(B)
+    kf_arr = _on(kf_idx, torch.int32, dev).expand(B)
     v = valid & (pt_idx >= 0)
     vi = v.to(torch.int32)
     base = m.n_obs
@@ -228,12 +267,28 @@ def live_incidence(m: MapState) -> torch.Tensor:
     return m.pt_kf_mask & m.pt_valid[:, None] & m.kf_valid[None, :]
 
 
+def rebuild_incidence(m: MapState) -> MapState:
+    """Recompute pt_kf_mask exactly from the observation list."""
+    P, K = m.pt_kf_mask.shape
+    ok = m.obs_valid & (m.obs_pt >= 0) & (m.obs_kf >= 0)
+    mask = torch.zeros((P + 1, K), dtype=torch.bool, device=ok.device)
+    mask.index_put_((torch.where(ok, m.obs_pt, P).long(),
+                     torch.clamp(m.obs_kf, 0, K - 1).long()), ok)
+    return m._replace(pt_kf_mask=mask[:P])
+
+
+def point_obs_count(m: MapState) -> torch.Tensor:
+    """(P,) number of live observing keyframes per point (replaces
+    MapPoint::Observations())."""
+    return torch.sum(live_incidence(m).to(torch.int32), dim=1)
+
+
 def covisibility_weights(m: MapState, kf_idx) -> torch.Tensor:
     """(K,) int32 shared-point counts between `kf_idx` and every other KF
     (reference KeyFrame::UpdateConnections, src/KeyFrame.cc:459)."""
     live = live_incidence(m).to(torch.float32)
-    counts = (live[:, kf_idx] @ live).to(torch.int32)
-    return _set_at(counts, torch.as_tensor(kf_idx, device=counts.device), 0)
+    counts = (_row(live, kf_idx, dim=1) @ live).to(torch.int32)
+    return _set_at(counts, kf_idx, 0)
 
 
 class PointView(NamedTuple):
@@ -257,7 +312,7 @@ def gather_local_view(m: MapState, center_kf, n_points: int,
     and jnp.argsort both keep the lower index first on ties."""
     K = m.kf_R.shape[0]
     dev = m.kf_R.device
-    center = torch.as_tensor(center_kf, device=dev)
+    center = center_kf
     covis = covisibility_weights(m, center_kf)
     kf_ids = torch.arange(K, device=dev)
     cscore = torch.where(m.kf_valid & (kf_ids != center), covis, 0)
@@ -285,3 +340,68 @@ def full_view(m: MapState) -> PointView:
                      min_dist=m.pt_min_dist, max_dist=m.pt_max_dist,
                      desc=m.pt_desc, valid=m.pt_valid,
                      idx=torch.arange(P, dtype=torch.int32, device=m.pt_xyz.device))
+
+
+def compact(m: MapState) -> tuple[MapState, torch.Tensor]:
+    """Reclaim point/observation slots freed by culling and fusion.
+
+    Stable-partitions valid points and valid observations to the front and
+    remaps obs_pt through the point permutation; keyframe slots do not
+    move.  Returns (compacted map, point_remap (P,) int32: old index -> new
+    index, -1 for dropped points), which the caller applies to its
+    bindings."""
+    P = m.pt_xyz.shape[0]
+    O = m.obs_kf.shape[0]
+    dev = m.pt_xyz.device
+    i32 = torch.int32
+    # ---- points: valid first, in their order
+    order = torch.argsort((~m.pt_valid).to(i32), stable=True)
+    n_valid = torch.sum(m.pt_valid.to(i32))
+    kept = torch.arange(P, device=dev) < n_valid
+    remap = torch.empty(P, dtype=i32, device=dev)
+    remap[order] = torch.where(kept, torch.arange(P, dtype=i32, device=dev), -1)
+
+    def pg(arr):
+        g = arr[order]
+        return torch.where(kept.reshape((P,) + (1,) * (arr.dim() - 1)), g,
+                           torch.zeros_like(g))
+
+    # ---- observations: drop the ones whose point died, remap the rest
+    new_pt = remap[torch.clamp(m.obs_pt, 0, P - 1).long()]
+    ov = m.obs_valid & (m.obs_pt >= 0) & (new_pt >= 0)
+    oorder = torch.argsort((~ov).to(i32), stable=True)
+    n_ov = torch.sum(ov.to(i32))
+    okept = torch.arange(O, device=dev) < n_ov
+
+    def og(arr, fill):
+        return torch.where(okept.reshape((O,) + (1,) * (arr.dim() - 1)),
+                           arr[oorder], fill)
+
+    return m._replace(
+        pt_xyz=pg(m.pt_xyz), pt_desc=pg(m.pt_desc), pt_normal=pg(m.pt_normal),
+        pt_min_dist=pg(m.pt_min_dist), pt_max_dist=pg(m.pt_max_dist),
+        pt_ref_kf=torch.where(kept, m.pt_ref_kf[order], -1),
+        pt_found=pg(m.pt_found), pt_visible=pg(m.pt_visible),
+        pt_first_frame=torch.where(kept, m.pt_first_frame[order], -1),
+        pt_valid=kept & m.pt_valid[order],
+        pt_desc_hist=pg(m.pt_desc_hist), pt_desc_n=pg(m.pt_desc_n),
+        obs_kf=og(m.obs_kf, -1), obs_pt=og(new_pt, -1),
+        obs_uv=og(m.obs_uv, 0.0), obs_octave=og(m.obs_octave, 0),
+        obs_ur=og(m.obs_ur, -1.0), obs_valid=okept,
+        n_pt=n_valid, n_obs=n_ov,
+        pt_kf_mask=pg(m.pt_kf_mask),
+    ), remap
+
+
+def cull_points(m: MapState, current_frame_id, min_found_ratio: float = 0.25,
+                min_obs: int = 3, window: int = 90) -> MapState:
+    """MapPointCulling parity (reference src/LocalMapping.cc:371-410):
+    recent points must keep found/visible >= 0.25 and reach >= min_obs
+    observations within a frame-id window of creation; points older than
+    3 windows are kept for good."""
+    age = current_frame_id - m.pt_first_frame
+    ratio = m.pt_found.to(torch.float32) / \
+        torch.clamp_min(m.pt_visible.to(torch.float32), 1.0)
+    nobs = point_obs_count(m)
+    bad = (ratio < min_found_ratio) | ((age > window) & (nobs < min_obs))
+    return m._replace(pt_valid=m.pt_valid & ~(bad & (age <= 3 * window)))

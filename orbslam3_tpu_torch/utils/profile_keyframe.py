@@ -1,0 +1,158 @@
+"""Profile the seeded keyframe drive's steps under torch.profiler on one GPU.
+
+    python -m orbslam3_tpu_torch.utils.profile_keyframe [--frames 12] [--out DIR]
+
+Seeds the default-size scene (`seeded_scene.SceneConfig()`), runs the drive
+once to warm up, then profiles it again over `--frames` tracked frames
+(one keyframe step per 6).  Each stage of the keyframe step is a profiler
+range: `insert_kf` (with `triangulate_vs_neighbors` inside it), `cull`,
+`local_ba` (with `solve_psd_blocked` inside it), `view` and
+`post_ba_stages`, beside `track_frame` for the tracked frames.  Prints,
+per keyframe step, each range's host milliseconds, device milliseconds
+(the kernels launched inside it) and kernel launches, then the device's
+busy share over the profiled drive, and writes the Chrome trace to
+`DIR/keyframe_trace.json`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import bisect
+import dataclasses
+import functools
+import json
+import os
+import subprocess
+import time
+
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _ranged(name, fn):
+    import torch
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+    return wrapper
+
+
+def _instrument():
+    """Wrap the stages in profiler ranges (module attributes, so that the
+    callers' lookups at call time find the wrappers)."""
+    from ..ops import smallsolve
+    from ..pipeline import frame_step, mapping, system
+    for mod, attr, name in ((system, "insert_kf", "insert_kf"), (system, "cull", "cull"),
+                            (system, "local_ba", "local_ba"), (system, "local_view", "view"),
+                            (system, "post_ba_stages", "post_ba_stages"),
+                            (mapping, "triangulate_vs_neighbors", "triangulate_vs_neighbors"),
+                            (smallsolve, "solve_psd_blocked", "solve_psd_blocked"),
+                            (frame_step, "track_frame", "track_frame")):
+        setattr(mod, attr, _ranged(name, getattr(mod, attr)))
+    return ("insert_kf", "triangulate_vs_neighbors", "cull", "local_ba",
+            "solve_psd_blocked", "view", "post_ba_stages", "track_frame")
+
+
+def range_table(trace: dict, names) -> tuple[dict, float, int]:
+    """From a Chrome trace of torch.profiler: per range name, [calls, host
+    ms, device ms, kernel launches], where a range owns the device work
+    (kernels, copies, sets) whose launching runtime call lies inside it on
+    the host.  Also returns the device's busy ms and kernel count over the
+    whole trace."""
+    ev = trace["traceEvents"]
+    dev = {e["args"]["correlation"]: e for e in ev if e.get("cat") in _DEVICE_CATS}
+    calls = sorted((e["ts"], dev[e["args"]["correlation"]]) for e in ev
+                   if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                   and e.get("args", {}).get("correlation") in dev)
+    starts = [c[0] for c in calls]
+    rows = {}
+    for e in ev:
+        if e.get("cat") != "user_annotation" or e["name"] not in names:
+            continue
+        owned = [d for _, d in calls[bisect.bisect_left(starts, e["ts"]):
+                                     bisect.bisect_right(starts, e["ts"] + e["dur"])]]
+        r = rows.setdefault(e["name"], [0, 0.0, 0.0, 0])
+        r[0] += 1
+        r[1] += e["dur"] / 1e3
+        r[2] += sum(d["dur"] for d in owned) / 1e3
+        r[3] += sum(d["cat"] == "kernel" for d in owned)
+    busy = sum(e["dur"] for e in dev.values()) / 1e3
+    return rows, busy, sum(e["cat"] == "kernel" for e in dev.values())
+
+
+def profile(cfg, dev, out_dir: str, card: str) -> dict:
+    """Warm up, then profile the drive over cfg.track_frames on `dev`."""
+    import torch
+    from . import seeded_scene as scene
+
+    names = _instrument()
+    frames = scene.render_frames(cfg)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    def drive():
+        m, bank, view = scene.seed_map(cfg, frames, dev)
+        sync()
+        t0 = time.perf_counter()
+        out = scene.track_with_keyframes(cfg, m, bank, view, frames, dev)
+        sync()
+        return out, time.perf_counter() - t0
+
+    drive()                                       # warm-up
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        (_, _, _, _, secs, steps), wall = drive()
+    os.makedirs(out_dir, exist_ok=True)
+    trace_path = os.path.join(out_dir, "keyframe_trace.json")
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        rows, busy_ms, n_launch = range_table(json.load(f), names)
+    print(f"card: {card}")
+    print(f"profiled drive: {len(secs)} tracked frames, {len(steps)} keyframe steps, wall "
+          f"{wall * 1e3:.1f} ms under the profiler; device busy {busy_ms:.1f} ms "
+          f"({100 * busy_ms / (wall * 1e3):.1f}%), {n_launch} kernel launches")
+    per = {"track_frame": len(secs)}
+    print(f"{'range':26s} {'calls':>5s} {'host ms':>10s} {'device ms':>10s} "
+          f"{'launches':>9s}   per tracked frame / per keyframe step")
+    table = {}
+    for name in names:
+        if name not in rows:
+            continue
+        c, host, devms, launches = rows[name]
+        k = per.get(name, len(steps))
+        table[name] = dict(calls=c, host_ms=host / k, device_ms=devms / k,
+                           launches=launches / k)
+        print(f"{name:26s} {c:5d} {host / k:10.2f} {devms / k:10.2f} {launches / k:9.0f}")
+    print("keyframe step times under the profiler (host clock, synchronised): " +
+          ", ".join(f"{s.seconds * 1e3:.1f}" for s in steps) + " ms")
+    result = {"card": card, "wall_ms": wall * 1e3, "busy_ms": busy_ms,
+              "launches": n_launch, "per_call": table,
+              "kf_step_ms": [s.seconds * 1e3 for s in steps]}
+    with open(os.path.join(out_dir, "keyframe_profile.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    return result
+
+
+def main() -> int:
+    import torch
+    from . import seeded_scene as scene
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=12)
+    ap.add_argument("--out", default="profile_out")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    cfg = dataclasses.replace(scene.SceneConfig(),
+                              track_frames=tuple(range(19, 19 + args.frames)))
+    profile(cfg, torch.device("cuda", 0), args.out, card)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,4 +1,5 @@
-"""A seeded-map monocular drive of the per-frame step, with ground truth.
+"""A seeded-map monocular drive of the per-frame and keyframe steps, with
+ground truth.
 
 The scene is `bench.py`'s (`bench_full_system`, bench.py:99-119): a
 textured ground plane seen from 5 units above along a gently weaving
@@ -6,29 +7,40 @@ trajectory (frame i at t = i/10), rendered with sensor noise of sigma 1.5.
 Mesas are left out so that every pixel's depth is the plane's, which lets
 the map be seeded without two-view initialization (not ported yet):
 
-  * each seed keyframe is extracted, its valid keypoints back-projected
-    onto z = 0 with the ground-truth pose and appended with
-    `add_keyframe` / `add_points` (`point_descriptor_stats` for normal
-    and scale range);
-  * every seeded point is observed (`add_observations`) in every seed
-    keyframe where it projects inside the image;
+  * each seed keyframe is extracted and appended with its ground-truth
+    pose (`add_keyframe`);
+  * the first one's valid keypoints are back-projected onto z = 0 and
+    become the map points (`add_points`, `point_descriptor_stats` for
+    normal and scale range), observed by their keypoints;
+  * every later seed keyframe binds its keypoints to those points with
+    `fusion.fuse_into_keyframe` (projection and descriptor match), so a
+    point has one slot however many keyframes see it and the keypoints
+    left unbound are what the keyframe step triangulates;
+  * each seed keyframe's FeatureBank row holds its keypoints and these
+    bindings; points seen by fewer than two keyframes are invalidated;
   * the local view is `gather_local_view` around the last seed keyframe;
   * the tracked frames then run `frame_step.track_frame`, starting from
     the ground-truth velocity, and each tracked pose is held against the
-    ground truth.
+    ground truth;
+  * `track_with_keyframes` also runs the synchronous keyframe step after
+    every `kf_every`-th tracked frame (bench.py's cadence, bench.py:121,166):
+    `system.kf_step`, `kf_pose_refresh` and `post_ba_stages`, as
+    `System._insert_keyframe` does (system.py:849-927).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..features.extractor import OrbParams, extract
 from ..ops import cameras, lie
-from ..pipeline import frame_step, mapping
+from ..pipeline import frame_step, fusion, mapping, system
+from ..slam_map import feature_bank as fb
 from ..slam_map import state as mapstate
 from . import synth_render as sr
 
@@ -56,6 +68,26 @@ class SceneConfig:
     min_inliers: int = 30
     max_center_err: float = 0.05
     max_rot_err_deg: float = 0.5
+    # keyframe step: bench.py's cadence and the SlamConfig mapping fields
+    kf_every: int = 6
+    new_pt_budget: int = 768
+    ba_caps: tuple = (16, 4096, 12288)
+    # gate on every keyframe step: median |z| of its new points (the scene
+    # is the z = 0 plane seen from 5 units up).  Six frames apart, a
+    # keyframe and its temporal neighbour see a point under ~2 degrees of
+    # parallax, and 0.5 px of keypoint noise is then ~0.15 units of depth;
+    # the JAX package's own drive at this size gives medians of 0.110-0.154
+    # after the step's BA.  The gate (5% of the depth) leaves room for that.
+    max_new_pt_z: float = 0.25
+
+
+def slam_config(cfg: SceneConfig) -> system.SlamConfig:
+    """The SlamConfig of the scene (defaults elsewhere)."""
+    return system.SlamConfig(
+        cam_model="pinhole", cam_params=cfg.K4, image_hw=cfg.hw, orb=cfg.orb,
+        map_capacity=cfg.capacity, local_view_points=cfg.view_points,
+        local_view_kfs=cfg.view_kfs, max_frames_between_kf=cfg.kf_every,
+        new_pt_budget=cfg.new_pt_budget, ba_caps=cfg.ba_caps)
 
 
 def bench_pose(i: int):
@@ -97,35 +129,41 @@ def _pose_on(i: int, device):
 
 
 def seed_map(cfg: SceneConfig, frames: dict, device):
-    """Seed the map from the ground-truth keyframes; returns (map, view)."""
+    """Seed the map and the feature bank from the ground-truth keyframes;
+    returns (map, bank, view)."""
     p = cfg.orb
     cam = torch.tensor(cfg.K4, dtype=torch.float32, device=device)
-    h, w = cfg.hw
     m = mapstate.empty_map(cfg.capacity, device)
-    chunks = []
-    for fi in cfg.seed_frames:
-        R, t = _pose_on(fi, device)
-        ff = extract(torch.from_numpy(frames[fi]).to(device), p)
-        Rwc, twc = lie.se3_inverse(R, t)
-        d = cameras.pinhole_unproject(cam, ff.xy) @ Rwc.T
-        X = twc + (-twc[2] / d[:, 2])[:, None] * d      # onto z = 0
-        normal, min_d, max_d = mapping.point_descriptor_stats(
-            X, ff.desc, twc, ff.octave, p.scale_factor, p.n_levels)
-        m, ki = mapstate.add_keyframe(m, R, t, fi / 10.0, fi)
-        m, pidx = mapstate.add_points(m, X, ff.desc, normal, min_d, max_d,
-                                      ki, fi, ff.valid)
-        chunks.append((X, pidx, ff.octave))
+    bank = None
     for k, fi in enumerate(cfg.seed_frames):
         R, t = _pose_on(fi, device)
-        for X, pidx, octave in chunks:
-            Xc = lie.se3_apply(R, t, X)
-            uv = cameras.pinhole_project(cam, Xc)
-            inside = (Xc[:, 2] > 0) & (uv[:, 0] >= 0) & (uv[:, 0] < w) & \
-                (uv[:, 1] >= 0) & (uv[:, 1] < h)
-            m = mapstate.add_observations(m, k, pidx, uv, octave, inside)
+        ff = extract(torch.from_numpy(frames[fi]).to(device), p)
+        m, ki = mapstate.add_keyframe(m, R, t, fi / 10.0, fi)
+        if bank is None:
+            bank = fb.empty_bank(cfg.capacity.n_kf, ff.capacity, device)
+        if k == 0:
+            Rwc, twc = lie.se3_inverse(R, t)
+            d = cameras.pinhole_unproject(cam, ff.xy) @ Rwc.T
+            X = twc + (-twc[2] / d[:, 2])[:, None] * d      # onto z = 0
+            normal, min_d, max_d = mapping.point_descriptor_stats(
+                X, ff.desc, twc, ff.octave, p.scale_factor, p.n_levels)
+            m, kp_pt = mapstate.add_points(m, X, ff.desc, normal, min_d, max_d,
+                                           ki, fi, ff.valid)
+            m = mapstate.add_observations(m, ki, kp_pt, ff.xy, ff.octave, ff.valid)
+        else:
+            m, kp_pt, _ = fusion.fuse_into_keyframe(
+                m, ki, ff, torch.full_like(ff.octave, -1), "pinhole", cam,
+                cfg.hw, p.scale_factor, p.n_levels)
+        bank = fb.set_frame(bank, ki, ff, kp_pt)
+    # a map point needs two observing keyframes
+    m = m._replace(pt_valid=m.pt_valid & (mapstate.point_obs_count(m) >= 2))
     view = mapstate.gather_local_view(m, len(cfg.seed_frames) - 1,
                                       cfg.view_points, window=cfg.view_kfs)
-    return m, view
+    return m, bank, view
+
+
+def _sync_fn(device):
+    return torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
 
 
 def track(cfg: SceneConfig, m, view, frames: dict, device):
@@ -139,7 +177,7 @@ def track(cfg: SceneConfig, m, view, frames: dict, device):
     R_prev, t_prev = _pose_on(f0 - 2, device)
     R_cur, t_cur = _pose_on(f0 - 1, device)
     imgs = {i: torch.from_numpy(frames[i]).to(device) for i in cfg.track_frames}
-    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    sync = _sync_fn(device)
     sync()
     out, secs = [], []
     for fi in cfg.track_frames:
@@ -166,3 +204,168 @@ def check_gates(cfg: SceneConfig, results) -> list[str]:
             bad.append(f"frame {fi}: inliers {n_inl}, centre err {dc:.4g}, "
                        f"rot err {dr:.4g} deg")
     return bad
+
+
+class KfStep(NamedTuple):
+    """One keyframe step of `track_with_keyframes`, read back after it."""
+    ki: int
+    frame: int
+    n_new: int
+    new_pt_z: float           # median |z| of the step's new points
+    kf_poses: list            # (frame id, R_cw, t_cw) of every valid KF
+    seconds: float
+
+
+def track_with_keyframes(cfg: SceneConfig, m, bank, view, frames: dict, device):
+    """Track cfg.track_frames and run the keyframe step after every
+    `kf_every`-th of them, with the view the step returns used for the
+    frames that follow.  Returns (map, bank, view, list of (frame, R_cw,
+    t_cw, n_inliers), per-frame seconds, list of KfStep).  A step's time
+    is the host clock from `kf_step` to a synchronise after
+    `post_ba_stages`; what the gates read is read back after that."""
+    p = cfg.orb
+    scfg = slam_config(cfg)
+    cam = torch.tensor(cfg.K4, dtype=torch.float32, device=device)
+    f0 = cfg.track_frames[0]
+    R_prev, t_prev = _pose_on(f0 - 2, device)
+    R_cur, t_cur = _pose_on(f0 - 1, device)
+    imgs = {i: torch.from_numpy(frames[i]).to(device) for i in cfg.track_frames}
+    kp_ur = torch.full((bank.xy.shape[1],), -1.0, dtype=torch.float32, device=device)
+    ki = len(cfg.seed_frames)
+    sync = _sync_fn(device)
+    sync()
+    out, secs, steps = [], [], []
+    for n, fi in enumerate(cfg.track_frames, 1):
+        t0 = time.perf_counter()
+        m, ff, R, t, kp_pt, n_inl = frame_step.track_frame(
+            m, view, imgs[fi], R_prev, t_prev, R_cur, t_cur, p, cam, cfg.hw,
+            radius_th=cfg.radius_th)
+        sync()
+        secs.append(time.perf_counter() - t0)
+        out.append((fi, R, t, n_inl))
+        R_prev, t_prev, R_cur, t_cur = R_cur, t_cur, R, t
+        if n % cfg.kf_every or ki >= cfg.capacity.n_kf - 1:
+            continue
+        t0 = time.perf_counter()
+        m, bank, _, kp_new, n_new, view = system.kf_step(
+            scfg, cam, m, bank, ff, kp_pt, R, t, fi / 10.0, fi, kp_ur, ki)
+        R_prev, t_prev, R_cur, t_cur = system.kf_pose_refresh(
+            m, ki, R_cur, t_cur, R_prev, t_prev)
+        m, bank, _, view = system.post_ba_stages(scfg, cam, m, bank, ki, ff,
+                                                 kp_new, view)
+        sync()
+        dt = time.perf_counter() - t0
+        created = kp_new[(kp_pt < 0) & (kp_new >= 0)].long()
+        z = torch.abs(m.pt_xyz[created, 2])
+        n_kf = int(m.n_kf)
+        valid = m.kf_valid[:n_kf].cpu().numpy()
+        kf_poses = [(int(f), R_.numpy(), t_.numpy()) for f, R_, t_, v in zip(
+            m.kf_frame_id[:n_kf].cpu(), m.kf_R[:n_kf].cpu(), m.kf_t[:n_kf].cpu(),
+            valid) if v]
+        steps.append(KfStep(ki, fi, int(n_new),
+                            float(torch.median(z)) if z.numel() else float("nan"),
+                            kf_poses, dt))
+        ki += 1
+    return m, bank, view, [(fi, R.cpu().numpy(), t.cpu().numpy(), int(n))
+                           for fi, R, t, n in out], secs, steps
+
+
+def check_kf_gates(cfg: SceneConfig, steps) -> list[str]:
+    """Keyframe-step gate failures (empty = every step passed): new points
+    were made, their median |z| is within `max_new_pt_z` of the plane, and
+    every valid keyframe pose is within the tracking pose gates."""
+    bad = []
+    for s in steps:
+        if not (s.n_new > 0 and s.new_pt_z <= cfg.max_new_pt_z):
+            bad.append(f"KF {s.ki} (frame {s.frame}): {s.n_new} new points, "
+                       f"median |z| {s.new_pt_z:.4g}")
+        for f, R, t in s.kf_poses:
+            dc, dr = pose_errors(R, t, f)
+            if not (dc <= cfg.max_center_err and dr <= cfg.max_rot_err_deg):
+                bad.append(f"after KF {s.ki}: KF of frame {f} centre err "
+                           f"{dc:.4g}, rot err {dr:.4g} deg")
+    return bad
+
+
+def first_kf_inputs(cfg: SceneConfig, m, view, frames: dict, device):
+    """Track the first `kf_every` frames; returns (map, FeatureFrame, kp_pt,
+    R_cw, t_cw, frame) of the last, the inputs of the first keyframe step."""
+    p = cfg.orb
+    cam = torch.tensor(cfg.K4, dtype=torch.float32, device=device)
+    f0 = cfg.track_frames[0]
+    R_prev, t_prev = _pose_on(f0 - 2, device)
+    R_cur, t_cur = _pose_on(f0 - 1, device)
+    for fi in cfg.track_frames[:cfg.kf_every]:
+        m, ff, R, t, kp_pt, _ = frame_step.track_frame(
+            m, view, torch.from_numpy(frames[fi]).to(device), R_prev, t_prev,
+            R_cur, t_cur, p, cam, cfg.hw, radius_th=cfg.radius_th)
+        R_prev, t_prev, R_cur, t_cur = R_cur, t_cur, R, t
+    return m, ff, kp_pt, R, t, fi
+
+
+def kf_step_mismatch(ref, got, kp_in, pose_tol: float = 1e-4,
+                     pt_rel_tol: float = 1e-3) -> tuple[list[str], dict]:
+    """Differences between two `system.kf_step` outputs (on any devices)
+    from the same inputs, `kp_in` being the new keyframe's bindings before
+    the step.  Returns (failures, empty if they agree; the measured max
+    pose |diff|, max point relative diff and number of relabelled slots).
+
+    The new points must come from the same keypoints of the new keyframe
+    and fill the same set of slots; `n_new`, the new keyframe's bindings,
+    the bank's bindings and the valid points must then be equal, keyframe
+    poses within `pose_tol` and valid points within `pt_rel_tol` of
+    max(|X|, 1).  The slots are handed out in the order of the new points'
+    parallax scores, and scores that differ in the last float bit between
+    two devices can swap two near-tied points, so `got`'s new slots are
+    first relabelled to `ref`'s through the keypoint that created each."""
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            return x.cpu()
+        return type(x)(*map(host, x)) if hasattr(x, "_fields") else x
+
+    m_r, bank_r, _, kp_r, n_r, _ = map(host, ref)
+    m_g, bank_g, _, kp_g, n_g, _ = map(host, got)
+    kp_in = kp_in.cpu()
+    bad = []
+    stats = dict(pose=float("nan"), point=float("nan"), relabelled=0)
+    if int(n_r) != int(n_g):
+        bad.append(f"n_new {int(n_g)} != {int(n_r)}")
+    made_r, made_g = (kp_in < 0) & (kp_r >= 0), (kp_in < 0) & (kp_g >= 0)
+    if not torch.equal(made_r, made_g):
+        return bad + ["new points come from other keypoints"], stats
+    slots_r, slots_g = kp_r[made_r].long(), kp_g[made_g].long()
+    if not torch.equal(torch.sort(slots_r).values, torch.sort(slots_g).values):
+        return bad + ["new points fill other slots"], stats
+    stats["relabelled"] = int((slots_r != slots_g).sum())
+    P = m_g.pt_xyz.shape[0]
+    relabel = torch.arange(P, dtype=torch.int32)
+    relabel[slots_g] = slots_r.to(torch.int32)
+
+    def binds(kp):
+        return torch.where(kp >= 0, relabel[torch.clamp_min(kp, 0).long()], kp)
+
+    def points(x):
+        out = x.clone()
+        out[relabel.long()] = x
+        return out
+
+    if not torch.equal(kp_r, binds(kp_g)):
+        bad.append("new keypoint bindings differ")
+    if not torch.equal(bank_r.kp_pt, binds(bank_g.kp_pt)):
+        bad.append("bank bindings differ")
+    valid = m_r.pt_valid
+    if not torch.equal(valid, points(m_g.pt_valid)):
+        bad.append("valid points differ")
+    stats["pose"] = 0.0
+    for name in ("kf_R", "kf_t"):
+        d = float((getattr(m_r, name) - getattr(m_g, name)).abs().max())
+        stats["pose"] = max(stats["pose"], d)
+        if not d <= pose_tol:
+            bad.append(f"{name} max |diff| {d:.3g} > {pose_tol}")
+    Xr, Xg = m_r.pt_xyz[valid], points(m_g.pt_xyz)[valid]
+    rel = (torch.linalg.norm(Xr - Xg, dim=1) /
+           torch.clamp_min(torch.linalg.norm(Xr, dim=1), 1.0))
+    stats["point"] = float(rel.max()) if rel.numel() else 0.0
+    if not stats["point"] <= pt_rel_tol:
+        bad.append(f"points max relative diff {stats['point']:.3g} > {pt_rel_tol}")
+    return bad, stats

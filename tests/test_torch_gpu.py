@@ -1,4 +1,5 @@
-"""The ORB patch kernels (CUDA, sm_90a) against their plain PyTorch twins.
+"""The ORB patch kernels (CUDA, sm_90a) against their plain PyTorch twins, and
+the keyframe step on the card against the same step on the CPU.
 
 These need an NVIDIA GPU with nvcc and are marked `gpu`; without a card they
 skip.  With a GPU: `python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest`
@@ -10,7 +11,11 @@ import pytest
 import torch
 
 from orbslam3_tpu_torch.features import extractor
+from orbslam3_tpu_torch.features.extractor import OrbParams
 from orbslam3_tpu_torch.ops import brief, orb_patches, orient
+from orbslam3_tpu_torch.pipeline import system
+from orbslam3_tpu_torch.slam_map.state import MapCapacity
+from orbslam3_tpu_torch.utils import seeded_scene as ss
 
 pytestmark = pytest.mark.gpu
 
@@ -95,3 +100,39 @@ def test_kernel_wrappers_refuse_bad_inputs(dev):
         orb_patches.brief_descriptors(torch.zeros(20, 20, device=dev),
                                       torch.zeros(4, 2, device=dev),
                                       torch.zeros(4, device=dev))     # smaller than 39
+
+
+def test_kf_step_on_the_card_matches_the_cpu(dev):
+    """The first keyframe step of the seeded drive (small size) on CUDA
+    tensors and on a CPU copy of the same inputs: the same new points from
+    the same keypoints in the same slots (up to near-tied points swapping
+    slots, see `kf_step_mismatch`) and the same bindings, poses within 1e-4
+    and points within 5e-3 relative.  The float32 sums run in another order
+    on the card; the new points of this small scene are triangulated under
+    a few degrees of parallax, so their depth is ill-conditioned and that
+    noise grows along the viewing ray through the six LM steps (measured
+    on an H100: 1.5e-3 at most)."""
+    cfg = ss.SceneConfig(hw=(240, 376), K4=(400.0, 400.0, 188.0, 120.0),
+                         orb=OrbParams(n_features=500, n_levels=4),
+                         capacity=MapCapacity(n_kf=16, n_pt=4096, n_obs=16384),
+                         view_points=2048, ba_caps=(8, 1024, 4096), new_pt_budget=256)
+    frames = ss.render_frames(cfg)
+    m, bank, view = ss.seed_map(cfg, frames, dev)
+    m, ff, kp_pt, R, t, fi = ss.first_kf_inputs(cfg, m, view, frames, dev)
+    ki = len(cfg.seed_frames)
+    scfg = ss.slam_config(cfg)
+
+    def step(device):
+        mv = lambda x: x.to(device)
+        cast = lambda tup: type(tup)(*(mv(x) for x in tup))
+        kp_ur = torch.full((ff.xy.shape[0],), -1.0, device=device)
+        return system.kf_step(scfg, torch.tensor(cfg.K4, device=device), cast(m),
+                              cast(bank), cast(ff), mv(kp_pt), mv(R), mv(t),
+                              fi / 10.0, fi, kp_ur, ki)
+
+    on_card = step(dev)
+    torch.cuda.synchronize()
+    assert on_card[0].kf_R.device.type == "cuda"
+    bad, _ = ss.kf_step_mismatch(step("cpu"), on_card, kp_pt, pt_rel_tol=5e-3)
+    assert bad == []
+    assert int(on_card[4]) > 0

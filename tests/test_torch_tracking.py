@@ -245,7 +245,7 @@ def seeded():
     features, and a guess 1 cm / 0.3 degrees off the ground truth."""
     cfg = H.SMALL
     frames = ss.render_frames(cfg)
-    mj, vj = H.seed_map_jax(cfg, frames)
+    mj, _, vj = H.seed_map_jax(cfg, frames)
     fi = cfg.track_frames[0]
     ffj = jx.extract_jit(jnp.asarray(frames[fi]), H.jax_params(cfg))
     R, t = ss.bench_pose(fi)

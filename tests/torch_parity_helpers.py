@@ -1,9 +1,11 @@
 """JAX-side counterparts of the port's seeded-map drive, for the parity tests.
 
-`seed_map_jax` / `track_jax` do with the JAX package what
-`orbslam3_tpu_torch.utils.seeded_scene.seed_map` / `track` do with the port,
-on the same numpy frames, so that a test can hold the two against each other
-and against ground truth.
+`seed_map_jax` / `track_jax` / `kf_drive_jax` do with the JAX package what
+`orbslam3_tpu_torch.utils.seeded_scene.seed_map` / `track` /
+`track_with_keyframes` do with the port, on the same numpy frames, so that a
+test can hold the two against each other and against ground truth.  The
+keyframe step runs through the JAX `System`'s own programs (`_kf_step`,
+`_kf_pose_refresh`, `_post_ba_stages`).
 """
 
 import functools
@@ -16,8 +18,11 @@ import torch
 from orbslam3_tpu.features import extractor as jx
 from orbslam3_tpu.ops import cameras as jcam
 from orbslam3_tpu.ops import lie as jlie
+from orbslam3_tpu.pipeline import fusion as jfusion
 from orbslam3_tpu.pipeline import mapping as jmapping
+from orbslam3_tpu.pipeline import system as jsystem
 from orbslam3_tpu.pipeline import tracking as jtracking
+from orbslam3_tpu.slam_map import feature_bank as jbank
 from orbslam3_tpu.slam_map import state as jstate
 from orbslam3_tpu_torch.features.extractor import OrbParams
 from orbslam3_tpu_torch.slam_map.state import MapCapacity
@@ -50,35 +55,35 @@ def _pose(i):
 
 
 def seed_map_jax(cfg, frames):
-    """The JAX twin of seeded_scene.seed_map; returns (map, view)."""
+    """The JAX twin of seeded_scene.seed_map; returns (map, bank, view)."""
     p = jax_params(cfg)
     cam = jnp.asarray(cfg.K4, jnp.float32)
-    h, w = cfg.hw
     m = jstate.empty_map(jax_capacity(cfg))
-    chunks = []
-    for fi in cfg.seed_frames:
-        R, t = _pose(fi)
-        ff = jx.extract_jit(jnp.asarray(frames[fi]), p)
-        Rwc, twc = jlie.se3_inverse(R, t)
-        d = jcam.pinhole_unproject(cam, ff.xy) @ Rwc.T
-        X = twc + (-twc[2] / d[:, 2])[:, None] * d
-        normal, min_d, max_d = jmapping.point_descriptor_stats(
-            X, ff.desc, twc, ff.octave, p.scale_factor, p.n_levels)
-        m, ki = jstate.add_keyframe(m, R, t, fi / 10.0, fi)
-        m, pidx = jstate.add_points(m, X, ff.desc, normal, min_d, max_d,
-                                    ki, fi, ff.valid)
-        chunks.append((X, pidx, ff.octave))
+    bank = None
     for k, fi in enumerate(cfg.seed_frames):
         R, t = _pose(fi)
-        for X, pidx, octave in chunks:
-            Xc = jlie.se3_apply(R, t, X)
-            uv = jcam.pinhole_project(cam, Xc)
-            inside = (Xc[:, 2] > 0) & (uv[:, 0] >= 0) & (uv[:, 0] < w) & \
-                (uv[:, 1] >= 0) & (uv[:, 1] < h)
-            m = jstate.add_observations(m, k, pidx, uv, octave, inside)
+        ff = jx.extract_jit(jnp.asarray(frames[fi]), p)
+        m, ki = jstate.add_keyframe(m, R, t, fi / 10.0, fi)
+        if bank is None:
+            bank = jbank.empty_bank(cfg.capacity.n_kf, ff.capacity)
+        if k == 0:
+            Rwc, twc = jlie.se3_inverse(R, t)
+            d = jcam.pinhole_unproject(cam, ff.xy) @ Rwc.T
+            X = twc + (-twc[2] / d[:, 2])[:, None] * d
+            normal, min_d, max_d = jmapping.point_descriptor_stats(
+                X, ff.desc, twc, ff.octave, p.scale_factor, p.n_levels)
+            m, kp_pt = jstate.add_points(m, X, ff.desc, normal, min_d, max_d,
+                                         ki, fi, ff.valid)
+            m = jstate.add_observations(m, ki, kp_pt, ff.xy, ff.octave, ff.valid)
+        else:
+            m, kp_pt, _ = jfusion.fuse_into_keyframe(
+                m, ki, ff, jnp.full(ff.xy.shape[0], -1, jnp.int32), "pinhole",
+                cam, cfg.hw, p.scale_factor, p.n_levels)
+        bank = jbank.set_frame(bank, ki, ff, kp_pt)
+    m = m._replace(pt_valid=m.pt_valid & (jstate.point_obs_count(m) >= 2))
     view = jstate.gather_local_view(m, len(cfg.seed_frames) - 1,
                                     cfg.view_points, window=cfg.view_kfs)
-    return m, view
+    return m, bank, view
 
 
 @functools.lru_cache(maxsize=None)
@@ -115,6 +120,63 @@ def track_jax(cfg, m, view, frames):
         out.append((fi, np.asarray(R), np.asarray(t), int(n_inl)))
         R_prev, t_prev, R_cur, t_cur = R_cur, t_cur, R, t
     return m, out
+
+
+def jax_system(cfg):
+    """A JAX System with the scene's SlamConfig (no keyframe database)."""
+    return jsystem.System(jsystem.SlamConfig(
+        cam_model="pinhole", cam_params=cfg.K4, image_hw=cfg.hw,
+        orb=jax_params(cfg), map_capacity=jax_capacity(cfg),
+        local_view_points=cfg.view_points, local_view_kfs=cfg.view_kfs,
+        max_frames_between_kf=cfg.kf_every, new_pt_budget=cfg.new_pt_budget,
+        ba_caps=cfg.ba_caps, enable_relocalization=False))
+
+
+def kf_step_jax(sys_, m, bank, ff, kp_pt, R, t, fi, ki):
+    """One keyframe step (kf_step, pose refresh left to the caller)."""
+    kp_ur = jnp.full(ff.xy.shape[0], -1.0, jnp.float32)
+    return sys_._kf_step(m, bank, ff, kp_pt, R, t, jnp.asarray(fi / 10.0, jnp.float32),
+                         jnp.asarray(fi, jnp.int32), kp_ur, jnp.asarray(ki, jnp.int32))
+
+
+def post_ba_stages_jax(sys_, m, bank, ki, ff, kp_pt, view, fi):
+    """System._post_ba_stages on the given state; returns (map, bank,
+    kp_pt of ki, view)."""
+    sys_.map, sys_.bank, sys_.last_kf_idx = m, bank, ki
+    sys_.kf_bindings[ki] = kp_pt
+    sys_._post_ba_stages(ki, ff, fi / 10.0, view=view)
+    return sys_.map, sys_.bank, sys_.kf_bindings[ki], sys_.view
+
+
+def kf_drive_jax(cfg, m, bank, view, frames):
+    """The JAX twin of seeded_scene.track_with_keyframes: (map, bank, view,
+    [(frame, R, t, n_inliers)], [(ki, frame, n_new, median |z| of the new
+    points)])."""
+    sys_ = jax_system(cfg)
+    step = _jax_frame_step(cfg)
+    f0 = cfg.track_frames[0]
+    R_prev, t_prev = _pose(f0 - 2)
+    R_cur, t_cur = _pose(f0 - 1)
+    ki = len(cfg.seed_frames)
+    out, steps = [], []
+    for n, fi in enumerate(cfg.track_frames, 1):
+        m, ff, R, t, kp_pt, n_inl = step(m, view, jnp.asarray(frames[fi]),
+                                         R_prev, t_prev, R_cur, t_cur)
+        out.append((fi, np.asarray(R), np.asarray(t), int(n_inl)))
+        R_prev, t_prev, R_cur, t_cur = R_cur, t_cur, R, t
+        if n % cfg.kf_every or ki >= cfg.capacity.n_kf - 1:
+            continue
+        m, bank, _, kp_new, n_new, view = kf_step_jax(sys_, m, bank, ff, kp_pt,
+                                                      R, t, fi, ki)
+        R_prev, t_prev, R_cur, t_cur = sys_._kf_pose_refresh(
+            m, jnp.asarray(ki, jnp.int32), R_cur, t_cur, R_prev, t_prev)
+        m, bank, _, view = post_ba_stages_jax(sys_, m, bank, ki, ff, kp_new, view, fi)
+        kp_pt, kp_new = np.asarray(kp_pt), np.asarray(kp_new)
+        created = kp_new[(kp_pt < 0) & (kp_new >= 0)]
+        z = np.abs(np.asarray(m.pt_xyz)[created, 2])
+        steps.append((ki, fi, int(n_new), float(np.median(z)) if z.size else np.nan))
+        ki += 1
+    return m, bank, view, out, steps
 
 
 def fields(x) -> dict:
