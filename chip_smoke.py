@@ -2,28 +2,40 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the per-frame monocular step and the
-synchronous keyframe step, at the JAX package's default monocular
-configuration (480x752 image, 1200 ORB features over 8 levels, map capacity
-256 keyframes / 24576 points / 196608 observations, a local view of 8192
-points over 12 keyframes; window BA caps 16 / 4096 / 12288, 6 LM steps over
-an 8-keyframe window, 4 triangulation neighbours, 768 new points at most):
+Drives the port's main paths, the per-frame monocular step, the synchronous
+keyframe step and the whole `System` from raw frames, at the JAX package's
+default monocular configuration (480x752 image, 1200 ORB features over 8
+levels, map capacity 256 keyframes / 24576 points / 196608 observations, a
+local view of 8192 points over 12 keyframes; window BA caps 16 / 4096 /
+12288, 6 LM steps over an 8-keyframe window, 4 triangulation neighbours, 768
+new points at most):
 
   1. device: requires CUDA (no CPU fallback) and prints the card's name and
      power limit as nvidia-smi reports them;
   2. build: compiles the ORB patch kernels from `orbslam3_tpu_torch/csrc`;
-  3. kernels: runs each kernel and its plain PyTorch twin on the card at the
-     main path's shapes (the port's own 1200 keypoints of a rendered frame)
-     and holds them together: K1 moments bit-equal on level-0 keypoints and
-     within 1e-5 * sum(|w| * I) elsewhere (the summation order differs on
-     non-integer pixels); K2 descriptors bit-identical given the same
-     angles.  Times are CUDA-event medians of 50 runs;
+  3. kernels: runs each kernel and its plain PyTorch version on the card at
+     the main path's shapes (the port's own 1200 keypoints of a rendered
+     frame) and holds them together: K1 moments bit-equal on level-0
+     keypoints and within 1e-5 * sum(|w| * I) elsewhere (the summation order
+     differs on non-integer pixels); K2 descriptors bit-identical given the
+     same angles; the one-launch kernel `orb_describe`: moments bit-equal to
+     K1's, angles bit-equal to the plain version's on level-0 keypoints and
+     elsewhere within the angle that K1's moment tolerance allows (the
+     number of keypoints whose angle bin differs is printed), descriptors
+     bit-identical to the plain version's at the kernel's own angles.  Per
+     kernel: the CUDA-event time around one launch (median of 50), the
+     device duration of the kernel itself from torch.profiler's kernel
+     records (median of 50), and the bound: the bytes these keypoints need
+     (distinct pixels touched, tables, keypoints, outputs; each once) over
+     3.35 TB/s, or the operations over 67 TFLOP/s, whichever is larger.  No
+     PyTorch call computes any of the three functions (`library_ms` null);
   4. slice: seeds a map from 4 ground-truth keyframes, builds the local
      view, tracks 24 frames with `frame_step.track_frame` and holds every
      frame to the gates (inliers >= 30, camera centre within 0.05 world
-     units and rotation within 0.5 degrees of ground truth).  The kernels'
-     launch counters are reset before this phase and must each equal the
-     number of `extract` calls in it (4 + 24);
+     units and rotation within 0.5 degrees of ground truth).  The launch
+     counters are reset before this phase and `orb_describe`'s must equal
+     the number of `extract` calls in it (4 + 24), the two single kernels' 0
+     (they are launched by phase 3 only);
   5. mapping: seeds the map and the feature bank again and runs bench.py's
      full-system cadence (bench.py:121,166): 48 tracked frames with a
      keyframe step after every 6th (`system.kf_step`, `kf_pose_refresh`,
@@ -37,12 +49,25 @@ an 8-keyframe window, 4 triangulation neighbours, 768 new points at most):
      within 0.25 of the ground plane and leave every valid keyframe pose
      within the pose gates; after a final `state.compact` the point count
      must equal the valid points and every remapped binding must name the
-     same point.  The counters, reset before this phase's seeding, must
-     equal its `extract` calls (4 + 48).
+     same point.  `orb_describe`'s counter, reset before this phase's
+     seeding, must equal its `extract` calls (4 + 48);
+  6. system: builds `System(cfg)` on the card with bench.py's configuration
+     (bench.py:103-107: `min_init_matches=60`, `min_track_inliers=20`,
+     `max_frames_between_kf=6`) and feeds it bench.py's 78 frames
+     (bench.py:110-122) as uint8 images with ts = i / 10 through
+     `track_monocular` and nothing else.  The state must be OK no later
+     than frame 29 and on every later frame, with no reset and no map
+     switch; every tracked frame must have at least `min_track_inliers`
+     inliers; keyframes must have been inserted by the system's own decision
+     (at least (78 - init frame) // 6 - 1); more than 200 valid map points
+     at the end; the trajectory's ATE RMSE against the ground-truth camera
+     centres after Umeyama alignment with scale below 0.08 of the path's
+     span; map, bank and view on the card; `orb_describe`'s counter equal
+     to the frames fed.
 
-Each phase prints one line; the kernels' JSON line and the card's line
-precede the last line, `{"ok": true, "device": {...}}`.  Any failure raises
-and exits non-zero before it.
+Each phase prints one line (phase 6 three more before it); the kernels' JSON
+line and the card's line precede the last line, `{"ok": true, "device":
+{...}}`.  Any failure raises and exits non-zero before it.
 """
 
 from __future__ import annotations
@@ -125,8 +150,7 @@ def mapping_phase(cfg, dev) -> dict:
     pts_before = int(m.pt_valid.sum())
     m, bank, view, results, secs, steps = scene.track_with_keyframes(
         cfg, m, bank, view, frames, dev)
-    out["launches"] = {"ic_moments": orb_patches.ic_moments_launches,
-                       "brief_desc": orb_patches.brief_desc_launches}
+    out["launches"] = orb_patches.launch_counts()
     out["n_extract"] = len(cfg.seed_frames) + len(cfg.track_frames)
     bad = scene.check_gates(cfg, results) + scene.check_kf_gates(cfg, steps)
     if len(steps) != len(cfg.track_frames) // cfg.kf_every:
@@ -162,6 +186,54 @@ def mapping_phase(cfg, dev) -> dict:
     return out
 
 
+def patch_kernel_work(sel, angle) -> dict:
+    """Per kernel, the bytes and operations that these keypoints need: the
+    distinct pixels the windows touch (each read once), the keypoints, the
+    tables and the outputs; 2 multiply-adds per pixel of a moment window, one
+    compare per descriptor bit."""
+    import numpy as np
+    import torch
+    from orbslam3_tpu_torch.ops import brief, orient
+
+    atlas, xy = sel.atlas, sel.xy_atlas
+    h, w = atlas.shape
+    n = xy.shape[0]
+    dev = atlas.device
+
+    def distinct(ys, xs):
+        hit = torch.zeros(h * w, dtype=torch.bool, device=dev)
+        hit[(ys * w + xs).reshape(-1)] = True
+        return int(hit.sum())
+
+    r = orient.HALF_PATCH_SIZE
+    u = np.arange(-r, r + 1)
+    inside = np.abs(u)[None, :] <= orient._umax_table()[np.abs(u)][:, None]
+    dy, dx = (torch.from_numpy(a).to(dev) for a in np.nonzero(inside))
+    xi = xy.to(torch.int32).long()
+    x0 = torch.clamp(xi[:, 0] - r, 0, w - (2 * r + 1))
+    y0 = torch.clamp(xi[:, 1] - r, 0, h - (2 * r + 1))
+    mom_px = distinct(y0[:, None] + dy[None, :], x0[:, None] + dx[None, :])
+
+    R = brief._PATCH_R
+    bins = brief.angle_bins(angle)
+    off = brief._offsets_on(str(dev))[bins]
+    bx0 = torch.clamp(torch.round(xy[:, 0]).long() - R, 0, w - (2 * R + 1))
+    by0 = torch.clamp(torch.round(xy[:, 1]).long() - R, 0, h - (2 * R + 1))
+    brf_px = distinct(by0[:, None] + R + off[..., 1], bx0[:, None] + R + off[..., 0])
+    table = int(torch.unique(bins).numel()) * 256 * 4      # one char4 per pair
+
+    k1 = dict(bytes=4 * mom_px + 8 * n + 4 * (r + 1) + 8 * n,
+              ops=4 * n * int(inside.sum()))
+    k2 = dict(bytes=4 * brf_px + 8 * n + 4 * n + table + 32 * n, ops=256 * n)
+    fused = dict(bytes=4 * (mom_px + brf_px) + 8 * n + 4 * (r + 1) + table + 4 * n + 32 * n,
+                 ops=k1["ops"] + k2["ops"] + 3 * n)
+    for k in (k1, k2, fused):
+        t_bytes, t_ops = k["bytes"] / 3.35e12 * 1e3, k["ops"] / 67e12 * 1e3
+        k.update(bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return {"ic_moments": k1, "brief_desc": k2, "orb_describe": fused}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -178,7 +250,9 @@ def main() -> int:
           f"cuda {torch.version.cuda}", flush=True)
 
     from orbslam3_tpu_torch.features import extractor
-    from orbslam3_tpu_torch.ops import brief, orb_patches, orient
+    from orbslam3_tpu_torch.geometry import twoview
+    from orbslam3_tpu_torch.ops import brief, matching, orb_patches, orient
+    from orbslam3_tpu_torch.utils import profile_keyframe
     from orbslam3_tpu_torch.utils import seeded_scene as scene
 
     # 2. build --------------------------------------------------------------
@@ -189,7 +263,7 @@ def main() -> int:
         print(log.strip(), file=sys.stderr)
     print(f"build: {lib.name} in {build_s:.3f} s", flush=True)
 
-    # 3. kernels against their twins at the main path's shapes --------------
+    # 3. kernels against their plain versions at the main path's shapes ------
     cfg = scene.SceneConfig()
     frames = scene.render_frames(cfg)
     img = torch.from_numpy(frames[cfg.seed_frames[0]]).to(dev)
@@ -220,27 +294,75 @@ def main() -> int:
     if diff_bits != 0:
         _fail(f"K2 brief_desc: descriptors differ from the twin ({diff_bits} bits)")
 
-    k1_ms = _event_ms(lambda: orb_patches.ic_moments(atlas, xy))
-    k1_plain = _event_ms(lambda: orient.ic_moments(atlas, xy))
-    k2_ms = _event_ms(lambda: orb_patches.brief_descriptors(blur, xy, angle))
-    k2_plain = _event_ms(lambda: brief.compute_descriptors(blur, xy, angle))
-    print(f"kernels: {n} keypoints, atlas {tuple(atlas.shape)}: K1 ic_moments "
-          f"{k1_ms:.4f} ms (twin {k1_plain:.4f} ms), level-0 bit-equal, max|diff| "
-          f"{k1_err.max().item():.3g}; K2 brief_desc {k2_ms:.4f} ms (twin "
-          f"{k2_plain:.4f} ms), bit-identical", flush=True)
+    # the one-launch kernel against the composition of the plain versions
+    ang_f, desc_f, mom_f = orb_patches.orb_describe(atlas, blur, xy, with_moments=True)
+    ang_p, _ = orb_patches.describe_plain(atlas, blur, xy)
+    torch.cuda.synchronize()
+    if not torch.equal(mom_f, mom_k):
+        _fail("orb_describe: moments differ from ic_moments'")
+    if not torch.equal(ang_f[lv0], ang_p[lv0]):
+        _fail("orb_describe: level-0 angles differ from the plain version's")
+    ang_tol = torch.rad2deg(1e-5 * torch.linalg.norm(mass, dim=1)
+                            / torch.linalg.norm(mom_t, dim=1)) + 1e-4
+    d_ang = (ang_f - ang_p).abs()
+    d_ang = torch.minimum(d_ang, 360.0 - d_ang)
+    if bool((d_ang > ang_tol).any()):
+        _fail(f"orb_describe: angle off by {d_ang.max().item()} deg")
+    bins_off = int((brief.angle_bins(ang_f) != brief.angle_bins(ang_p)).sum())
+    bins_off_lv0 = int((brief.angle_bins(ang_f) != brief.angle_bins(ang_p))[lv0].sum())
+    if bins_off_lv0:
+        _fail(f"orb_describe: {bins_off_lv0} level-0 keypoints in another angle bin")
+    fused_bits = int(brief.unpack_bits(
+        desc_f ^ brief.compute_descriptors(blur, xy, ang_f)).sum(dim=1).max().item())
+    if fused_bits != 0:
+        _fail(f"orb_describe: descriptors differ from the plain version ({fused_bits} bits)")
+
+    calls = {"ic_moments": lambda: orb_patches.ic_moments(atlas, xy),
+             "brief_desc": lambda: orb_patches.brief_descriptors(blur, xy, angle),
+             "orb_describe": lambda: orb_patches.orb_describe(atlas, blur, xy)}
+    plains = {"ic_moments": lambda: orient.ic_moments(atlas, xy),
+              "brief_desc": lambda: brief.compute_descriptors(blur, xy, angle),
+              "orb_describe": lambda: orb_patches.describe_plain(atlas, blur, xy)}
+    ev_ms = {k: _event_ms(f) for k, f in calls.items()}
+    plain_ms = {k: _event_ms(f) for k, f in plains.items()}
+    work = patch_kernel_work(sel, ang_f)
+    # device durations of the kernels themselves, each through its wrapper,
+    # and how many kernels one call of the extractor's last stage launches
+    dev_ms = {}
+    for k, f in calls.items():
+        durs, _ = profile_keyframe.kernel_durations(f, [k + "_kernel"])
+        dev_ms[k] = statistics.median(durs[k + "_kernel"]) / 1e3 if durs[k + "_kernel"] else None
+    _, per_call = profile_keyframe.kernel_durations(
+        lambda: orb_patches.ic_angle_and_descriptors(atlas, blur, xy), [])
+    # max_abs_err: moments for K1, descriptor bits for K2, degrees for the
+    # one-launch kernel (its descriptor bits stand under `desc_bits_off`)
+    err = {"ic_moments": float(k1_err.max().item()), "brief_desc": float(diff_bits),
+           "orb_describe": float(d_ang.max().item())}
+    bits_off = {"ic_moments": None, "brief_desc": diff_bits, "orb_describe": fused_bits}
+    print(f"kernels: {n} keypoints, atlas {tuple(atlas.shape)}; K1 level-0 bit-equal, max|diff| "
+          f"{err['ic_moments']:.3g}; K2 bit-identical; orb_describe: moments bit-equal to K1's, "
+          f"level-0 angles bit-equal, max angle diff {d_ang.max().item():.3g} deg, "
+          f"{bins_off} keypoints in another bin than the plain version's (0 on level 0), "
+          f"descriptors bit-identical at its own angles; kernels per call of the last "
+          f"extraction stage: {per_call}", flush=True)
+    for k in calls:
+        d = "not measured" if dev_ms[k] is None else f"{dev_ms[k] * 1e3:.2f} us"
+        print(f"  {k}: device {d}, events {ev_ms[k] * 1e3:.2f} us, plain "
+              f"{plain_ms[k] * 1e3:.2f} us, bound {work[k]['bound_ms'] * 1e3:.3f} us by "
+              f"{work[k]['bound_by']} ({work[k]['bytes']} bytes, {work[k]['ops']} operations)",
+              flush=True)
 
     # 4. the slice ----------------------------------------------------------
     orb_patches.reset_counters()
     t0 = time.perf_counter()
-    m, _, view = scene.seed_map(cfg, frames, dev)
+    m0, _, view = scene.seed_map(cfg, frames, dev)
     torch.cuda.synchronize()
     seed_s = time.perf_counter() - t0
-    m, results, secs = scene.track(cfg, m, view, frames, dev)
+    m, results, secs = scene.track(cfg, m0, view, frames, dev)
     n_extract = len(cfg.seed_frames) + len(cfg.track_frames)
-    launches = {"ic_moments": orb_patches.ic_moments_launches,
-                "brief_desc": orb_patches.brief_desc_launches}
-    if any(v != n_extract for v in launches.values()):
-        _fail(f"launch counters {launches} != {n_extract} extract calls")
+    launches = orb_patches.launch_counts()
+    if launches != {"ic_moments": 0, "brief_desc": 0, "orb_describe": n_extract}:
+        _fail(f"launch counters {launches} for {n_extract} extract calls")
     bad = scene.check_gates(cfg, results)
     if bad:
         _fail("tracking gates failed: " + "; ".join(bad))
@@ -260,8 +382,8 @@ def main() -> int:
     mp = mapping_phase(kcfg, dev)
     phase_s = time.perf_counter() - t0
     kf_launches = mp["launches"]
-    if any(v != mp["n_extract"] for v in kf_launches.values()):
-        _fail(f"launch counters {kf_launches} != {mp['n_extract']} extract calls")
+    if kf_launches != {"ic_moments": 0, "brief_desc": 0, "orb_describe": mp["n_extract"]}:
+        _fail(f"launch counters {kf_launches} for {mp['n_extract']} extract calls")
     fs = mp["first_step"]
     print(f"mapping: first keyframe step on the card and on the CPU agree ({fs['n_new']} "
           f"new points, {fs['diff']['relabelled']} of them in swapped slots, max pose |diff| "
@@ -278,22 +400,65 @@ def main() -> int:
           f"keyframe centre err {mp['max_kf_centre_err']:.4g}; launches {kf_launches}",
           flush=True)
 
-    # 6. report -------------------------------------------------------------
+    # 6. the System from raw frames -------------------------------------------
+    scfg = dataclasses.replace(cfg, seed_frames=(), track_frames=tuple(range(78)))
+    sframes = scene.render_frames(scfg)
+    orb_patches.reset_counters()
+    t0 = time.perf_counter()
+    sys_, drive = scene.drive_system(scfg, sframes, dev)
+    sys_s = time.perf_counter() - t0
+    sys_launches = orb_patches.launch_counts()
+    bad, st = scene.check_system_gates(sys_, drive)
+    if sys_launches != {"ic_moments": 0, "brief_desc": 0,
+                        "orb_describe": len(scfg.track_frames)}:
+        bad.append(f"launch counters {sys_launches} for {len(scfg.track_frames)} frames")
+    for name, tensor in (("map", sys_.map.pt_xyz), ("bank", sys_.bank.xy),
+                         ("view", sys_.view.xyz)):
+        if tensor.device.type != "cuda":
+            bad.append(f"the {name} is on {tensor.device}")
+    if bad:
+        _fail("system gates failed: " + "; ".join(bad))
+    # the two-view reconstruction of the initialising pair, timed on its own
+    ff_a = extractor.extract(torch.from_numpy(sframes[st["init"]["ref_frame"]]).to(dev), cfg.orb)
+    ff_b = extractor.extract(torch.from_numpy(sframes[st["init"]["frame"]]).to(dev), cfg.orb)
+    mm = matching.search_for_initialization(ff_a, ff_b)
+    xy_b = ff_b.xy[torch.clamp_min(mm.idx, 0).long()]
+    recon_ms = _event_ms(lambda: twoview.reconstruct(
+        ff_a.xy, xy_b, mm.valid, sys_.cam_params, generator=sys_.generator), runs=5)
+    print(f"system: initialising frame {st['init_ms']:.1f} ms (two-view reconstruction "
+          f"alone {recon_ms:.1f} ms: 200 hypotheses of F and H, batched SVD)", flush=True)
+    print(f"system: tracked frame median {st['frame_ms']:.3f} ms over {st['n_tracked']} "
+          f"frames", flush=True)
+    print(f"system: keyframe frame median {st['kf_frame_ms']:.3f} ms over "
+          f"{st['n_kf_frames']} frames", flush=True)
+    model = "the homography" if st["init"]["used_homography"] else "the fundamental matrix"
+    print(f"system: 78 frames through track_monocular in {sys_s:.1f} s; initialised at frame "
+          f"{st['init_frame']} against frame {st['init']['ref_frame']} with {model}, "
+          f"{st['init']['n_points']} points; OK on every later frame, 0 resets; inliers "
+          f"{st['inliers'][0]}-{st['inliers'][1]}; {st['n_kf']} keyframes, {st['n_points']} "
+          f"valid map points; ATE RMSE {st['ate']:.5g} after alignment with scale "
+          f"{st['scale']:.5g}, {st['ate'] / st['span']:.4f} of the path's span "
+          f"{st['span']:.4g}; map, bank and view on the card; launches {sys_launches}",
+          flush=True)
+
+    # 7. report -------------------------------------------------------------
     src = "orbslam3_tpu_torch/csrc/orb_patches.cu"
+    replaces = {"ic_moments": "orbslam3_tpu/ops/pallas_patches.py:58",
+                "brief_desc": "orbslam3_tpu/ops/pallas_patches.py:76",
+                "orb_describe": "orbslam3_tpu/ops/pallas_patches.py:180"}
+    # launches: of the system path's own run.  No path launches the two
+    # single kernels: `orb_describe` carries their work in one launch, and
+    # phase 3 alone launches them, to hold them against their plain versions
     print(json.dumps({"kernels": [
-        {"name": "ic_moments", "route": "cuda", "source": src,
-         "replaces": "orbslam3_tpu/ops/pallas_patches.py:58",
-         "launches": kf_launches["ic_moments"],
-         "launches_per_path": {"tracking": launches["ic_moments"],
-                               "keyframe": kf_launches["ic_moments"]},
-         "max_abs_err": float(k1_err.max().item()), "ms": k1_ms, "plain_ms": k1_plain},
-        {"name": "brief_desc", "route": "cuda", "source": src,
-         "replaces": "orbslam3_tpu/ops/pallas_patches.py:76",
-         "launches": kf_launches["brief_desc"],
-         "launches_per_path": {"tracking": launches["brief_desc"],
-                               "keyframe": kf_launches["brief_desc"]},
-         "max_abs_err": float(diff_bits), "ms": k2_ms, "plain_ms": k2_plain},
-    ]}), flush=True)
+        {"name": k, "route": "cuda", "source": src, "replaces": replaces[k],
+         "launches": sys_launches[k],
+         "launches_per_path": {"tracking": launches[k], "keyframe": kf_launches[k],
+                               "system": sys_launches[k]},
+         "max_abs_err": err[k], "ms": ev_ms[k], "plain_ms": plain_ms[k],
+         "bound_ms": work[k]["bound_ms"], "bound_by": work[k]["bound_by"],
+         "library_ms": None, "device_ms": dev_ms[k], "bytes": work[k]["bytes"],
+         "operations": work[k]["ops"], "desc_bits_off": bits_off[k]}
+        for k in ("ic_moments", "brief_desc", "orb_describe")]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,9 @@
-// Per-keypoint ORB patch kernels for Hopper (sm_90a): IC-angle moments and
-// fused binned rBRIEF.  Plain C interface, loaded with ctypes by
+// Per-keypoint ORB patch kernels for Hopper (sm_90a): IC-angle moments,
+// fused binned rBRIEF, and orb_describe, which does both and the angle
+// between them in one launch.  Plain C interface, loaded with ctypes by
 // orbslam3_tpu_torch/ops/orb_patches.py, which also holds the plain PyTorch
-// twins (ops/orient.ic_moments, ops/brief.compute_descriptors).
+// twins (ops/orient.ic_moments, ops/orient.angle_from_moments,
+// ops/brief.compute_descriptors).
 //
 // What they replace (both TPU kernels of the repository):
 //   ic_moments  <- orbslam3_tpu/ops/pallas_patches.py:58-74
@@ -11,6 +13,9 @@
 //                  (_win_kernel(S_BRF=39, reduce_moments=False), launched at
 //                  :171-176) followed by ops/brief.descriptors_from_patches
 //                  (brief.py:67-84)
+//   orb_describe <- both of the above and the jnp ops between them
+//                  (pallas_patches.py:186-188: atan2, wrap, degrees), which
+//                  is what extractor.extract calls once per frame
 //
 // What bounds them on the card: at the main path's shapes (1200 keypoints,
 // a 2210x752 f32 atlas = 6.6 MB that stays in the 50 MB L2) the two kernels
@@ -30,6 +35,19 @@
 // 256 pairs at the bin's int8 offsets and packs each 32-pair word with one
 // __ballot_sync; the (N, 1521) patch tensor and the one-hot matmul stack,
 // which exist only for the TPU's MXU, never exist here.
+//
+// orb_describe: the two kernels are latency-bound, and between them sit the
+// elementwise launches of the angle.  One launch per frame does it all in
+// one warp per keypoint.  A lane's 31 row reads of the moments do not
+// depend on one another: the row test |u| <= umax[|v|] (umax does not
+// increase with |v|) becomes |v| <= vlim with one vlim per lane, so the
+// unrolled loads go out back to back and their latencies overlap
+// instead of adding up.  The sums keep ic_moments' order (rows in order per
+// lane, the same fused multiply-adds, the same shuffle tree), so the
+// moments are bit-equal to ic_moments'.  The angle is computed operation by
+// operation as orient.angle_from_moments does (atan2f, one add, one
+// multiply, each rounded on its own: a contracted multiply-add could move
+// an angle across a bin edge and change all 256 bits).  No fast math.
 //
 // Exactness: moments are reduced per lane in row order, then by a fixed
 // shuffle tree, so the result is deterministic.  On integer-valued pixels
@@ -128,6 +146,94 @@ brief_desc_kernel(const float* __restrict__ img, int h, int w,
   if (lane < kBriefWords) out[static_cast<size_t>(k) * kBriefWords + lane] = mine;
 }
 
+// Moments, angle and descriptor of one keypoint in one warp (see the note at
+// the top).  `raw` and `blur` are the two atlases, both (h, w).  Writes the
+// angle in degrees [0, 360) to angle_out[k], the 8 descriptor words to
+// desc_out[8k..], and, when mom_out is not null, [m10, m01] to mom_out[2k..].
+__global__ void __launch_bounds__(kThreads)
+orb_describe_kernel(const float* __restrict__ raw,
+                    const float* __restrict__ blur, int h, int w,
+                    const float* __restrict__ xy, int n,
+                    const int* __restrict__ umax,
+                    const char4* __restrict__ pairs, float bin_scale,
+                    int n_bins, float* __restrict__ angle_out,
+                    unsigned int* __restrict__ desc_out,
+                    float* __restrict__ mom_out) {
+  const int lane = threadIdx.x & 31;
+  const int k = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (k >= n) return;  // the whole warp leaves together
+  const float x = xy[2 * k];
+  const float y = xy[2 * k + 1];
+
+  // 1. moments, as ic_moments_kernel sums them
+  const int mx0 = min(max(static_cast<int>(x) - kMomHalf, 0), w - kMomSize);
+  const int my0 = min(max(static_cast<int>(y) - kMomHalf, 0), h - kMomSize);
+  float m10 = 0.f;
+  float m01 = 0.f;
+  if (lane < kMomSize) {
+    const int u = lane - kMomHalf;
+    const int au = abs(u);
+    int vlim = -1;  // rows |v| <= vlim hold column u
+#pragma unroll
+    for (int v = 0; v <= kMomHalf; ++v) vlim += (au <= __ldg(umax + v)) ? 1 : 0;
+    const float* col = raw + static_cast<size_t>(my0) * w + mx0 + lane;
+    float pix[kMomSize];
+#pragma unroll
+    for (int r = 0; r < kMomSize; ++r) {
+      pix[r] = (abs(r - kMomHalf) <= vlim)
+                   ? __ldg(col + static_cast<size_t>(r) * w) : 0.f;
+    }
+    const float fu = static_cast<float>(u);
+#pragma unroll
+    for (int r = 0; r < kMomSize; ++r) {
+      if (abs(r - kMomHalf) <= vlim) {
+        m10 = fmaf(fu, pix[r], m10);
+        m01 = fmaf(static_cast<float>(r - kMomHalf), pix[r], m01);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    m10 += __shfl_down_sync(kFullMask, m10, off);
+    m01 += __shfl_down_sync(kFullMask, m01, off);
+  }
+  m10 = __shfl_sync(kFullMask, m10, 0);
+  m01 = __shfl_sync(kFullMask, m01, 0);
+
+  // 2. angle: atan2, wrap into [0, 2 pi), to degrees; three roundings
+  float ang = atan2f(m01, m10);
+  if (ang < 0.f) ang = __fadd_rn(ang, 6.2831855f);
+  ang = __fmul_rn(ang, 57.29578f);
+  if (lane == 0) {
+    angle_out[k] = ang;
+    if (mom_out != nullptr) {
+      mom_out[2 * k] = m10;
+      mom_out[2 * k + 1] = m01;
+    }
+  }
+
+  // 3. bin and descriptor, as brief_desc_kernel
+  const int bx0 = min(max(__float2int_rn(x) - kBriefHalf, 0), w - kBriefSize);
+  const int by0 = min(max(__float2int_rn(y) - kBriefHalf, 0), h - kBriefSize);
+  int bin = __float2int_rn(__fmul_rn(ang, bin_scale)) % n_bins;
+  if (bin < 0) bin += n_bins;
+  const float* c = blur + static_cast<size_t>(by0 + kBriefHalf) * w +
+                   (bx0 + kBriefHalf);
+  const char4* tab = pairs + static_cast<size_t>(bin) * kBriefPairs;
+  unsigned int mine = 0u;
+#pragma unroll
+  for (int wd = 0; wd < kBriefWords; ++wd) {
+    const char4 o = __ldg(tab + wd * 32 + lane);
+    const float ip = __ldg(c + o.y * w + o.x);
+    const float iq = __ldg(c + o.w * w + o.z);
+    const unsigned int word = __ballot_sync(kFullMask, ip < iq);
+    if (lane == wd) mine = word;
+  }
+  if (lane < kBriefWords) {
+    desc_out[static_cast<size_t>(k) * kBriefWords + lane] = mine;
+  }
+}
+
 int launch_blocks(int n) { return (n + kWarpsPerBlock - 1) / kWarpsPerBlock; }
 
 }  // namespace
@@ -158,6 +264,20 @@ int orb_brief_desc(int device, const float* img, int h, int w,
                       static_cast<cudaStream_t>(stream)>>>(
       img, h, w, xy, angle, n, static_cast<const char4*>(pairs), bin_scale,
       n_bins, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// mom_out may be null.
+int orb_describe(int device, const float* raw, const float* blur, int h, int w,
+                 const float* xy, int n, const int* umax, const void* pairs,
+                 float bin_scale, int n_bins, float* angle_out,
+                 unsigned int* desc_out, float* mom_out, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  orb_describe_kernel<<<launch_blocks(n), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      raw, blur, h, w, xy, n, umax, static_cast<const char4*>(pairs),
+      bin_scale, n_bins, angle_out, desc_out, mom_out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -119,6 +119,24 @@ def normalize_rotation(R: torch.Tensor) -> torch.Tensor:
     return R
 
 
+def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Shepperd conversion by selects, (..., 3, 3) -> (..., 4) wxyz; the
+    largest of the four pivots is taken, the first on ties."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qs = torch.stack([
+        torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1),
+        torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1),
+        torch.stack([m02 - m20, m01 + m10, 1.0 + m11 - m00 - m22, m12 + m21], dim=-1),
+        torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 + m22 - m00 - m11], dim=-1),
+    ], dim=-2)                                        # (..., 4 candidates, 4)
+    idx = torch.argmax(torch.diagonal(qs, dim1=-2, dim2=-1), dim=-1)
+    q = torch.gather(qs, -2, idx[..., None, None].expand(idx.shape + (1, 4)))[..., 0, :]
+    return q / (torch.linalg.norm(q, dim=-1, keepdim=True) + _EPS)
+
+
 def se3_exp(xi: torch.Tensor):
     """se(3) -> SE(3).  xi = [rho (trans), phi (rot)], shape (..., 6)."""
     rho, phi = xi[..., :3], xi[..., 3:]

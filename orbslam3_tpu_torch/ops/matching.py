@@ -1,8 +1,9 @@
 """Descriptor matching: masked Hamming nearest neighbour + the projection gate.
 
-Counterpart of `orbslam3_tpu/ops/matching.py` for what tracking and
-mapping use: `match_nn` with its mask, distance, ratio, mutual and
-rotation-histogram gates, `projection_mask` and `epipolar_mask`.  Every
+Counterpart of `orbslam3_tpu/ops/matching.py` for what initialization,
+tracking and mapping use: `match_nn` with its mask, distance, ratio, mutual
+and rotation-histogram gates, `window_mask`, `projection_mask`,
+`epipolar_mask`, `search_for_initialization` and `search_by_brute_force`.  Every
 strategy is a full (N x M) distance matrix (one unpacked-bit matmul) plus a
 compatibility mask, an argmin and gates.
 
@@ -100,6 +101,20 @@ def match_nn(desc_a: torch.Tensor, desc_b: torch.Tensor,
     return Matches(idx=torch.where(valid, best_idx, -1), dist=best, valid=valid)
 
 
+def window_mask(xy_a: torch.Tensor, xy_b: torch.Tensor, radius: float,
+                octave_a: torch.Tensor | None = None,
+                octave_b: torch.Tensor | None = None,
+                max_octave: int | None = None) -> torch.Tensor:
+    """|xy_a - xy_b| window search (SearchForInitialization: the reference
+    restricts to octave 0 via GetFeaturesInArea(level 0, 0)).  (N, M) bool."""
+    dx = xy_a[:, None, 0] - xy_b[None, :, 0]
+    dy = xy_a[:, None, 1] - xy_b[None, :, 1]
+    m = (torch.abs(dx) <= radius) & (torch.abs(dy) <= radius)
+    if max_octave is not None:
+        m &= (octave_a[:, None] <= max_octave) & (octave_b[None, :] <= max_octave)
+    return m
+
+
 def projection_mask(uv_proj: torch.Tensor, pred_octave: torch.Tensor,
                     proj_valid: torch.Tensor, xy_f: torch.Tensor,
                     octave_f: torch.Tensor, kp_valid: torch.Tensor,
@@ -130,3 +145,24 @@ def epipolar_mask(xy_a: torch.Tensor, xy_b: torch.Tensor, F12: torch.Tensor,
     den = lines[:, 0:1] ** 2 + lines[:, 1:2] ** 2
     dsqr = (num * num) / (den + 1e-12)
     return dsqr < chi2_th * sigma2_b[None, :]
+
+
+def search_for_initialization(ff1, ff2, radius: float = 100.0,
+                              nn_ratio: float = 0.9) -> Matches:
+    """Two-frame initialization matching (reference
+    Tracking::MonocularInitialization -> SearchForInitialization with
+    windowSize=100 upstream)."""
+    mask = window_mask(ff1.xy, ff2.xy, radius, ff1.octave, ff2.octave, max_octave=0)
+    mask &= ff1.valid[:, None] & ff2.valid[None, :]
+    return match_nn(ff1.desc, ff2.desc, mask, max_dist=TH_LOW, nn_ratio=nn_ratio,
+                    angles_a=ff1.angle, angles_b=ff2.angle, check_rotation=True)
+
+
+def search_by_brute_force(ff1, ff2, nn_ratio: float = 0.7, max_dist: int = TH_LOW,
+                          check_rotation: bool = True) -> Matches:
+    """Stand-in for SearchByBoW: the matmul matcher searches all pairs
+    exactly, a superset of the BoW shared-node search at equal gates."""
+    mask = ff1.valid[:, None] & ff2.valid[None, :]
+    return match_nn(ff1.desc, ff2.desc, mask, max_dist=max_dist, nn_ratio=nn_ratio,
+                    angles_a=ff1.angle, angles_b=ff2.angle,
+                    check_rotation=check_rotation)

@@ -1,20 +1,25 @@
-"""The ORB patch kernels: IC-angle moments (K1) and fused binned rBRIEF (K2).
+"""The ORB patch kernels: IC-angle moments (K1), fused binned rBRIEF (K2),
+and `orb_describe`, which does K1, the angle and K2 in one launch.
 
 Counterpart of `orbslam3_tpu/ops/pallas_patches.py`, whose two Pallas TPU
-kernels (`_win_kernel`, :58-74 and :76-88) become two CUDA kernels for
-Hopper in `csrc/orb_patches.cu` (see the note at its top for what bounds
-them and how they are laid out).
+kernels (`_win_kernel`, :58-74 and :76-88) become CUDA kernels for Hopper
+in `csrc/orb_patches.cu` (see the note at its top for what bounds them and
+how they are laid out).  The extractor calls `ic_angle_and_descriptors`,
+which takes the one-launch kernel; `ic_moments` and `brief_descriptors`
+stay as the two kernels on their own.
 
 Each kernel has three parts here:
 
-  * a plain PyTorch twin (`orient.ic_moments`, `brief.compute_descriptors`)
-    that defines what is correct;
-  * a wrapper (`ic_moments`, `brief_descriptors`) that dispatches on the
-    tensor's device: a CPU tensor goes to the twin, a CUDA tensor to the
-    kernel, anything else raises.  There is no fallback: a kernel that does
-    not build or does not launch raises;
-  * a launch counter (`ic_moments_launches`, `brief_desc_launches`), raised
-    by one exactly where the wrapper launches the kernel.
+  * a plain PyTorch twin (`orient.ic_moments`, `brief.compute_descriptors`,
+    and `describe_plain`, their composition through
+    `orient.angle_from_moments`) that defines what is correct;
+  * a wrapper (`ic_moments`, `brief_descriptors`, `orb_describe`) that
+    dispatches on the tensor's device: a CPU tensor goes to the twin, a
+    CUDA tensor to the kernel, anything else raises.  There is no fallback:
+    a kernel that does not build or does not launch raises;
+  * a launch counter (`ic_moments_launches`, `brief_desc_launches`,
+    `orb_describe_launches`), raised by one exactly where the wrapper
+    launches the kernel.
 
 The kernels are built on first use with nvcc (C interface, bound with
 ctypes) into `orbslam3_tpu_torch/build/`, keyed by a hash of the source and
@@ -47,14 +52,21 @@ S_BRF = 2 * brief._PATCH_R + 1            # 39
 
 ic_moments_launches = 0
 brief_desc_launches = 0
+orb_describe_launches = 0
 
 _lib = None
 
 
 def reset_counters() -> None:
-    global ic_moments_launches, brief_desc_launches
+    global ic_moments_launches, brief_desc_launches, orb_describe_launches
     ic_moments_launches = 0
     brief_desc_launches = 0
+    orb_describe_launches = 0
+
+
+def launch_counts() -> dict:
+    return {"ic_moments": ic_moments_launches, "brief_desc": brief_desc_launches,
+            "orb_describe": orb_describe_launches}
 
 
 def _nvcc() -> str:
@@ -96,6 +108,9 @@ def _load():
         lib.orb_brief_desc.argtypes = [i32, ptr, i32, i32, ptr, ptr, i32, ptr,
                                        ctypes.c_float, i32, ptr, ptr]
         lib.orb_brief_desc.restype = i32
+        lib.orb_describe.argtypes = [i32, ptr, ptr, i32, i32, ptr, i32, ptr, ptr,
+                                     ctypes.c_float, i32, ptr, ptr, ptr, ptr]
+        lib.orb_describe.restype = i32
         lib.orb_error_string.argtypes = [i32]
         lib.orb_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -177,10 +192,52 @@ def brief_descriptors(atlas_blur: torch.Tensor, xy: torch.Tensor,
     return out
 
 
+def describe_plain(atlas: torch.Tensor, atlas_blur: torch.Tensor,
+                   xy: torch.Tensor):
+    """The plain version of `orb_describe`: the moments' twin, atan2 ->
+    wrap -> degrees in plain torch (as pallas_patches.py:186-188 does in
+    jnp), then the descriptors' twin."""
+    angle = orient.angle_from_moments(orient.ic_moments(atlas, xy))
+    return angle, brief.compute_descriptors(atlas_blur, xy, angle)
+
+
+def orb_describe(atlas: torch.Tensor, atlas_blur: torch.Tensor, xy: torch.Tensor,
+                 with_moments: bool = False):
+    """K1, the angle and K2 in one launch: (angle (N,) f32 degrees in
+    [0, 360), desc (N, 8) int32) for keypoints at atlas coordinates xy, the
+    moments from `atlas`, the descriptors from `atlas_blur` (same shape).
+    `with_moments` also returns the kernel's (N, 2) moments, for tests."""
+    global orb_describe_launches
+    if atlas.device.type == "cpu":
+        if with_moments:
+            raise ValueError("with_moments reads the CUDA kernel's moments")
+        return describe_plain(atlas, atlas_blur, xy)
+    _check(atlas, xy, S_BRF)
+    if (atlas_blur.shape != atlas.shape or atlas_blur.dtype != torch.float32
+            or not atlas_blur.is_contiguous() or atlas_blur.device != atlas.device):
+        raise ValueError("the blurred atlas must be a contiguous float32 tensor of "
+                         f"shape {tuple(atlas.shape)} on {atlas.device}")
+    lib = _load()
+    n = xy.shape[0]
+    dev = atlas.device
+    angle = torch.empty((n,), dtype=torch.float32, device=dev)
+    desc = torch.empty((n, 8), dtype=torch.int32, device=dev)
+    mom = torch.empty((n, 2), dtype=torch.float32, device=dev) if with_moments else None
+    rc = lib.orb_describe(
+        dev.index, atlas.data_ptr(), atlas_blur.data_ptr(), atlas.shape[0],
+        atlas.shape[1], xy.data_ptr(), n, _umax_on(str(dev)).data_ptr(),
+        _pairs_on(str(dev)).data_ptr(),
+        float(np.float32(brief.N_ANGLE_BINS / 360.0)), brief.N_ANGLE_BINS,
+        angle.data_ptr(), desc.data_ptr(), None if mom is None else mom.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, rc, "orb_describe")
+    orb_describe_launches += 1
+    return (angle, desc, mom) if with_moments else (angle, desc)
+
+
 def ic_angle_and_descriptors(atlas: torch.Tensor, atlas_blur: torch.Tensor,
                              xy: torch.Tensor):
     """Angles (N,) in degrees and descriptors (N, 8) int32 for keypoints
-    at atlas coordinates xy: K1, then atan2 -> degrees -> wrap in plain
-    torch (as pallas_patches.py:186-188 does in jnp), then K2."""
-    angle = orient.angle_from_moments(ic_moments(atlas, xy))
-    return angle, brief_descriptors(atlas_blur, xy, angle)
+    at atlas coordinates xy: one launch of `orb_describe` on CUDA tensors,
+    the plain versions on CPU tensors."""
+    return orb_describe(atlas, atlas_blur, xy)

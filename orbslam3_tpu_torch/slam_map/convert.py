@@ -2,7 +2,7 @@
 
 numpy in, numpy out; nothing here imports JAX.  A test fills these from
 `jax.device_get(x)._asdict()` so that both sides compute on the same map,
-view, feature frame or feature bank.  uint32 descriptor words cross as int32 bit
+view, feature frame, feature bank, match set or two-view result.  uint32 descriptor words cross as int32 bit
 patterns (`.view(np.int32)`), the port's descriptor format.
 """
 
@@ -12,6 +12,8 @@ import numpy as np
 import torch
 
 from ..features.extractor import FeatureFrame
+from ..geometry.twoview import TwoViewResult
+from ..ops.matching import Matches
 from .feature_bank import FeatureBank
 from .state import MapState, PointView
 
@@ -41,6 +43,14 @@ def frame_from_numpy(fields: dict, device="cpu") -> FeatureFrame:
 
 def bank_from_numpy(fields: dict, device="cpu") -> FeatureBank:
     return _build(FeatureBank, fields, device)
+
+
+def matches_from_numpy(fields: dict, device="cpu") -> Matches:
+    return _build(Matches, fields, device)
+
+
+def twoview_from_numpy(fields: dict, device="cpu") -> TwoViewResult:
+    return _build(TwoViewResult, fields, device)
 
 
 def to_numpy(x):

@@ -81,6 +81,31 @@ def range_table(trace: dict, names) -> tuple[dict, float, int]:
     return rows, busy, sum(e["cat"] == "kernel" for e in dev.values())
 
 
+def kernel_durations(fn, names, runs: int = 50) -> tuple[dict, int]:
+    """Run `fn` `runs` times under torch.profiler on the current CUDA device
+    and read the kernel records of the Chrome trace: per name in `names`,
+    the device durations in microseconds of the kernels whose name contains
+    it; also the number of kernels of any name launched per run."""
+    import tempfile
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            kernels = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    return ({n: [e["dur"] for e in kernels if n in e["name"]] for n in names},
+            len(kernels) // runs)
+
+
 def profile(cfg, dev, out_dir: str, card: str) -> dict:
     """Warm up, then profile the drive over cfg.track_frames on `dev`."""
     import torch

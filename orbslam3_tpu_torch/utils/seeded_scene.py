@@ -1,11 +1,12 @@
-"""A seeded-map monocular drive of the per-frame and keyframe steps, with
-ground truth.
+"""Monocular drives on bench.py's scene, with ground truth: the per-frame
+and keyframe steps on a map seeded from ground-truth poses, and the whole
+`System` from raw frames (`drive_system`, at the end of this file).
 
 The scene is `bench.py`'s (`bench_full_system`, bench.py:99-119): a
 textured ground plane seen from 5 units above along a gently weaving
 trajectory (frame i at t = i/10), rendered with sensor noise of sigma 1.5.
-Mesas are left out so that every pixel's depth is the plane's, which lets
-the map be seeded without two-view initialization (not ported yet):
+Every pixel's depth is the plane's, which lets the seeded drives build
+their map without two-view initialization:
 
   * each seed keyframe is extracted and appended with its ground-truth
     pose (`add_keyframe`);
@@ -40,6 +41,7 @@ import torch
 from ..features.extractor import OrbParams, extract
 from ..ops import cameras, lie
 from ..pipeline import frame_step, fusion, mapping, system
+from . import align
 from ..slam_map import feature_bank as fb
 from ..slam_map import state as mapstate
 from . import synth_render as sr
@@ -163,7 +165,9 @@ def seed_map(cfg: SceneConfig, frames: dict, device):
 
 
 def _sync_fn(device):
-    return torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    """Synchronise for `device` (None: the default, a CUDA device)."""
+    on_card = device is None or torch.device(device).type == "cuda"
+    return torch.cuda.synchronize if on_card else (lambda: None)
 
 
 def track(cfg: SceneConfig, m, view, frames: dict, device):
@@ -368,4 +372,109 @@ def kf_step_mismatch(ref, got, kp_in, pose_tol: float = 1e-4,
     stats["point"] = float(rel.max()) if rel.numel() else 0.0
     if not stats["point"] <= pt_rel_tol:
         bad.append(f"points max relative diff {stats['point']:.3g} > {pt_rel_tol}")
+    return bad, stats
+
+
+# --- the whole System from raw frames ---------------------------------------
+
+def system_config(cfg: SceneConfig) -> system.SlamConfig:
+    """bench.py's `System` configuration (bench.py:103-107) at the scene's
+    sizes: `min_init_matches=60`, `min_track_inliers=20`,
+    `max_frames_between_kf=6`, everything else the scene's or the default."""
+    return dataclasses.replace(slam_config(cfg), min_init_matches=60,
+                               min_track_inliers=20)
+
+
+class SystemDrive(NamedTuple):
+    """What `drive_system` saw, frame by frame (lists over the frames fed)."""
+    frames: list       # frame index
+    states: list       # tracking state after the frame
+    seconds: list      # host clock around `track_monocular` up to a synchronise
+    inliers: list      # inliers of a tracked frame, None where none was tracked
+    n_kf: list         # keyframes in the map after the frame
+    init_frame: int    # position in `frames` of the initialising frame, -1 if none
+
+
+def drive_system(cfg: SceneConfig, frames: dict, device, seed: int = 42):
+    """Feed cfg.track_frames, as uint8 images with ts = i / 10, to a fresh
+    `System` through `track_monocular` and nothing else (`device` None: the
+    System's default, the card).  Returns (System, SystemDrive)."""
+    sys_ = system.System(system_config(cfg), device=device, seed=seed)
+    sync = _sync_fn(device)
+    d = SystemDrive([], [], [], [], [], -1)
+    init_frame = -1
+    for n, fi in enumerate(cfg.track_frames):
+        was = sys_.state
+        sync()
+        t0 = time.perf_counter()
+        state, _ = sys_.track_monocular(frames[fi], fi / 10.0)
+        sync()
+        d.seconds.append(time.perf_counter() - t0)
+        d.frames.append(fi)
+        d.states.append(state)
+        tracked = was in (system.OK, system.RECENTLY_LOST)
+        d.inliers.append(sys_.last_track_inliers if tracked else None)
+        d.n_kf.append(sys_.n_kf_host)
+        if init_frame < 0 and was != system.OK and state == system.OK:
+            init_frame = n
+    return sys_, d._replace(init_frame=init_frame)
+
+
+def system_ate(sys_: system.System):
+    """ATE RMSE of the system's trajectory against the ground-truth camera
+    centres after Umeyama alignment with scale: (rmse, scale, span of the
+    ground-truth path over the trajectory's frames)."""
+    est = np.stack([p[2] for p in sys_.trajectory])
+    gt = []
+    for ts, _, _ in sys_.trajectory:
+        R, t = bench_pose(int(round(ts * 10.0)))
+        gt.append(-R.T.astype(np.float64) @ t.astype(np.float64))
+    gt = np.stack(gt)
+    rmse, s, _, _ = align.ate_rmse(est, gt)
+    return rmse, s, float(np.linalg.norm(gt.max(0) - gt.min(0)))
+
+
+def check_system_gates(sys_: system.System, d: SystemDrive,
+                       init_by: int = 29, max_ate_ratio: float = 0.08,
+                       min_points: int = 200) -> tuple[list[str], dict]:
+    """Gate failures of a `drive_system` run (empty = passed) and its
+    numbers: initialised no later than position `init_by`, OK on every frame
+    after, no reset and no map switch, every tracked frame with at least
+    `min_track_inliers` inliers, keyframes inserted by the system's own
+    decision, more than `min_points` valid map points, and an ATE RMSE below
+    `max_ate_ratio` of the ground-truth path's span."""
+    scfg = sys_.cfg
+    bad = []
+    n = len(d.frames)
+    if not 0 <= d.init_frame <= init_by:
+        return [f"not initialised by frame {init_by} (states {d.states})"], {}
+    lost = [d.frames[i] for i in range(d.init_frame, n) if d.states[i] != system.OK]
+    if lost:
+        bad.append(f"not OK on frames {lost}")
+    if sys_.n_resets or sys_.n_map_switches:
+        bad.append(f"{sys_.n_resets} resets, {sys_.n_map_switches} map switches")
+    inl = [x for x in d.inliers[d.init_frame + 1:] if x is not None]
+    if not inl or min(inl) < scfg.min_track_inliers:
+        bad.append(f"tracked-frame inliers {inl}")
+    n_kf_made = d.n_kf[-1] - 2
+    need_kf = (n - d.init_frame) // scfg.max_frames_between_kf - 1
+    if n_kf_made < need_kf:
+        bad.append(f"{n_kf_made} keyframes inserted, {need_kf} expected")
+    n_pts = int(sys_.map.pt_valid.sum())
+    if n_pts <= min_points:
+        bad.append(f"{n_pts} valid map points")
+    rmse, scale, span = system_ate(sys_)
+    if not rmse < max_ate_ratio * span:
+        bad.append(f"ATE {rmse:.4g} of a span of {span:.4g}")
+    kf_frame = [i > d.init_frame and d.n_kf[i] > d.n_kf[i - 1] for i in range(n)]
+    plain = [d.seconds[i] for i in range(d.init_frame + 1, n) if not kf_frame[i]]
+    kf_secs = [d.seconds[i] for i in range(n) if kf_frame[i]]
+    stats = dict(
+        init_frame=d.frames[d.init_frame], init=dict(sys_.init_info),
+        init_ms=d.seconds[d.init_frame] * 1e3,
+        frame_ms=float(np.median(plain)) * 1e3 if plain else float("nan"),
+        kf_frame_ms=float(np.median(kf_secs)) * 1e3 if kf_secs else float("nan"),
+        n_tracked=len(plain), n_kf_frames=len(kf_secs),
+        inliers=(min(inl), max(inl)) if inl else None, n_kf=d.n_kf[-1],
+        n_points=n_pts, ate=rmse, scale=scale, span=span)
     return bad, stats

@@ -1,5 +1,6 @@
-"""The ORB patch kernels (CUDA, sm_90a) against their plain PyTorch twins, and
-the keyframe step on the card against the same step on the CPU.
+"""The ORB patch kernels (CUDA, sm_90a) against their plain PyTorch twins, the
+keyframe step on the card against the same step on the CPU, and the `System`
+from raw frames on the card.
 
 These need an NVIDIA GPU with nvcc and are marked `gpu`; without a card they
 skip.  With a GPU: `python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest`
@@ -77,14 +78,53 @@ def test_brief_kernel_matches_twin(dev):
     assert torch.equal(got, ref)
 
 
+@pytest.mark.parametrize("integer", [True, False])
+def test_orb_describe_kernel_matches_plain(dev, integer):
+    """The one-launch kernel against its plain version on the card: moments
+    bit-equal to `ic_moments`' (the same sums in the same order); on
+    integer pixels the angles bit-equal to the twin's (the moments are exact
+    and the angle is the same three operations), otherwise within the angle
+    that the moments' tolerance of 1e-5 * sum(|w| * I) allows; descriptors
+    bit-identical to the twin's at the kernel's own angles."""
+    rng = np.random.default_rng(3)
+    h, w = 300, 500
+    raw = torch.from_numpy(_atlas(rng, h, w, integer)).to(dev)
+    blur = torch.from_numpy(_atlas(rng, h, w, True)).to(dev)
+    xy = torch.from_numpy(_keypoints(rng, h, w, 1000)).to(dev)
+    angle, desc, mom = orb_patches.orb_describe(raw, blur, xy, with_moments=True)
+    mom_k1 = orb_patches.ic_moments(raw, xy)
+    angle_p, _ = orb_patches.describe_plain(raw, blur, xy)
+    torch.cuda.synchronize()
+    assert torch.equal(mom, mom_k1)
+    if integer:
+        assert torch.equal(angle, angle_p)
+    else:
+        mom_p = orient.ic_moments(raw, xy)
+        wu, wv = orient._moment_weights()
+        absw = torch.from_numpy(np.abs(np.stack([wu, wv], -1))).to(dev)
+        mass = torch.einsum("nij,ijc->nc",
+                            orient.extract_patches(raw, xy.to(torch.int32),
+                                                    orient.HALF_PATCH_SIZE), absw)
+        # |d angle| <= |d mom| / |mom| radians, and one float32 step of 360
+        tol = torch.rad2deg(1e-5 * torch.linalg.norm(mass, dim=1)
+                            / torch.linalg.norm(mom_p, dim=1)) + 1e-4
+        d = (angle - angle_p).abs()
+        assert bool((torch.minimum(d, 360.0 - d) <= tol).all())
+    assert bool(((angle >= 0) & (angle <= 360)).all())
+    assert torch.equal(desc, brief.compute_descriptors(blur, xy, angle))
+
+
 def test_extract_launches_each_kernel_once(dev):
+    """`extract` on a CUDA tensor: one launch of the one-launch kernel and
+    none of the two on their own."""
     rng = np.random.default_rng(2)
     img = torch.from_numpy(rng.integers(0, 256, (240, 376)).astype(np.uint8)).to(dev)
     p = extractor.OrbParams(n_features=500, n_levels=4)
     orb_patches.reset_counters()
     ff = extractor.extract(img, p)
     torch.cuda.synchronize()
-    assert (orb_patches.ic_moments_launches, orb_patches.brief_desc_launches) == (1, 1)
+    assert orb_patches.launch_counts() == {
+        "ic_moments": 0, "brief_desc": 0, "orb_describe": 1}
     ref = extractor.extract(img.cpu(), p)
     lv0 = ref.octave == 0
     assert torch.equal(ff.xy.cpu()[lv0], ref.xy[lv0])
@@ -100,6 +140,9 @@ def test_kernel_wrappers_refuse_bad_inputs(dev):
         orb_patches.brief_descriptors(torch.zeros(20, 20, device=dev),
                                       torch.zeros(4, 2, device=dev),
                                       torch.zeros(4, device=dev))     # smaller than 39
+    with pytest.raises(ValueError):
+        orb_patches.orb_describe(img, torch.zeros(64, 65, device=dev),
+                                 torch.zeros(4, 2, device=dev))       # atlases differ
 
 
 def test_kf_step_on_the_card_matches_the_cpu(dev):
@@ -136,3 +179,25 @@ def test_kf_step_on_the_card_matches_the_cpu(dev):
     bad, _ = ss.kf_step_mismatch(step("cpu"), on_card, kp_pt, pt_rel_tol=5e-3)
     assert bad == []
     assert int(on_card[4]) > 0
+
+
+def test_system_boots_from_raw_frames_on_the_card(dev):
+    """The smoke run's system phase at a small size: 60 rendered frames
+    through `System.track_monocular` alone, the `System` built with no device
+    argument.  The small image sees less of the plane, so initialization
+    takes until about frame 30; the other gates are the smoke run's."""
+    cfg = ss.SceneConfig(hw=(240, 376), K4=(400.0, 400.0, 188.0, 120.0),
+                         orb=OrbParams(n_features=500, n_levels=4),
+                         capacity=MapCapacity(n_kf=16, n_pt=4096, n_obs=16384),
+                         seed_frames=(), track_frames=tuple(range(60)),
+                         view_points=2048, ba_caps=(8, 1024, 4096), new_pt_budget=256)
+    orb_patches.reset_counters()
+    sys_, drive = ss.drive_system(cfg, ss.render_frames(cfg), None)
+    bad, stats = ss.check_system_gates(sys_, drive, init_by=40)
+    assert bad == []
+    assert stats["init"]["used_homography"]
+    assert sys_.device == dev
+    assert sys_.map.pt_xyz.device == dev and sys_.bank.xy.device == dev
+    assert sys_.view.xyz.device == dev
+    assert orb_patches.launch_counts() == {
+        "ic_moments": 0, "brief_desc": 0, "orb_describe": 60}

@@ -50,7 +50,7 @@ def _check(cfg, res_t, res_j, mt, mj):
         np.testing.assert_allclose(tt, tj, atol=1e-3)
         assert abs(nt - nj) <= 0.01 * nj, (fi, nt, nj)
     # CPU tensors ran the twins: no kernel was launched
-    assert orb_patches.ic_moments_launches == 0
+    assert set(orb_patches.launch_counts().values()) == {0}
     assert int(mt.pt_found.sum()) == pytest.approx(int(np.asarray(mj.pt_found).sum()), rel=0.01)
 
 
@@ -74,7 +74,12 @@ names = [m.name for m in pkgutil.walk_packages(orbslam3_tpu_torch.__path__,
                                                "orbslam3_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+for name in ("geometry.twoview", "slam_map.atlas", "utils.align", "pipeline.system"):
+    assert "orbslam3_tpu_torch." + name in names, name
+from orbslam3_tpu_torch.pipeline.system import SlamConfig, System
+assert System(SlamConfig(), device="cpu").state == 0
 import chip_smoke
+assert "jax" not in [m.split(".")[0] for m, v in sys.modules.items() if v is not None]
 print(len(names))
 """
 
@@ -84,7 +89,7 @@ def test_port_and_smoke_import_without_jax():
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": REPO})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 33   # every module of the package
+    assert int(out.stdout.split()[-1]) >= 37   # every module of the package
 
 
 def _smoke(cwd):

@@ -25,6 +25,7 @@ from orbslam3_tpu.pipeline import tracking as jtracking
 from orbslam3_tpu.slam_map import feature_bank as jbank
 from orbslam3_tpu.slam_map import state as jstate
 from orbslam3_tpu_torch.features.extractor import OrbParams
+from orbslam3_tpu_torch.slam_map import convert
 from orbslam3_tpu_torch.slam_map.state import MapCapacity
 from orbslam3_tpu_torch.utils import seeded_scene as ss
 
@@ -182,3 +183,21 @@ def kf_drive_jax(cfg, m, bank, view, frames):
 def fields(x) -> dict:
     """A JAX NamedTuple as a dict of numpy arrays, for slam_map.convert."""
     return {k: np.asarray(v) for k, v in jax.device_get(x)._asdict().items()}
+
+
+def copy_system_state(jsys, tsys) -> None:
+    """Copy a JAX `System`'s tracker state (map, bank, view, poses, velocity
+    flag, keyframe bookkeeping, frame id, state, timestamps) into a port
+    `System`, so that both continue from the same point."""
+    dev = tsys.device
+    tsys.map = convert.map_from_numpy(fields(jsys.map), dev)
+    tsys.bank = None if jsys.bank is None else convert.bank_from_numpy(fields(jsys.bank), dev)
+    tsys.view = None if jsys.view is None else convert.view_from_numpy(fields(jsys.view), dev)
+    for name in ("R_cur", "t_cur", "R_prev", "t_prev"):
+        setattr(tsys, name, torch.from_numpy(np.array(getattr(jsys, name), np.float32)).to(dev))
+    tsys._pose_host = None
+    for name in ("has_velocity", "last_kf_id", "last_kf_idx", "n_kf_host", "last_kf_ts",
+                 "inliers_at_last_kf", "frame_id", "state", "lost_frames",
+                 "_prev_frame_ts", "localization_only"):
+        setattr(tsys, name, getattr(jsys, name))
+    tsys.trajectory = [(ts, np.array(R), np.array(t)) for ts, R, t in jsys.trajectory]
