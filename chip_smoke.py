@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Drives the port's main paths, the per-frame monocular step, the synchronous
-keyframe step and the whole `System` from raw frames, at the JAX package's
-default monocular configuration (480x752 image, 1200 ORB features over 8
+keyframe step, the whole `System` from raw frames and its recovery of a lost
+track by relocalization, at the JAX package's default monocular configuration (480x752 image, 1200 ORB features over 8
 levels, map capacity 256 keyframes / 24576 points / 196608 observations, a
 local view of 8192 points over 12 keyframes; window BA caps 16 / 4096 /
 12288, 6 LM steps over an 8-keyframe window, 4 triangulation neighbours, 768
@@ -63,9 +63,31 @@ new points at most):
      at the end; the trajectory's ATE RMSE against the ground-truth camera
      centres after Umeyama alignment with scale below 0.08 of the path's
      span; map, bank and view on the card; `orb_describe`'s counter equal
-     to the frames fed.
+     to the frames fed.  The default configuration builds the 65536-word
+     keyframe database, and every keyframe of this phase is registered in it;
+  7. relocalization: the same `System` then gets 3 textureless frames (fewer
+     than `reloc_patience`: RECENTLY_LOST, nothing recovered), then frames
+     20-25 of the path rendered again with fresh noise, 1.7 world units
+     (about 137 pixels) behind the last pose, beyond what local-map tracking
+     from the last pose searches (30 pixels times the octave's scale, 107 at
+     most).  The first of them, or the next, must return OK through
+     relocalization (its own local-map tracking below `min_track_inliers`),
+     with no reset and no stored map, the recovered camera centre within 0.05
+     world units (after the trajectory's Umeyama scale) and 0.5 degrees of the
+     pose the system gave that frame the first time, and every later frame
+     OK with at least `min_track_inliers` inliers; `orb_describe`'s counter
+     equal to the 9 frames.  Then `vocab.assign_words` at 65536 words on that
+     frame's descriptors against a chunked evaluation with
+     `brief.hamming_distance` (identical words), and `keyframe_db.query`
+     against a float64 numpy evaluation of the same database (the same masked
+     keyframes, scores within 1e-5 relative).  Timed with CUDA events on the
+     state from before the kidnap: `add_keyframe`, the query half of an
+     attempt (words, BoW vector, scores) and its batch half (8 candidates x
+     300 MLPnP hypotheses), and a whole attempt on the host clock.
 
-Each phase prints one line (phase 6 three more before it); the kernels' JSON
+Each phase prints one line (phase 6 three more before it, phase 7 four more
+after it: kernels per call and device time of `add_keyframe` and of the two
+halves of an attempt, from torch.profiler's kernel records); the kernels' JSON
 line and the card's line precede the last line, `{"ok": true, "device":
 {...}}`.  Any failure raises and exits non-zero before it.
 """
@@ -184,6 +206,138 @@ def mapping_phase(cfg, dev) -> dict:
         max_kf_centre_err=max(scene.pose_errors(R_, t_, f)[0]
                               for s in steps for f, R_, t_ in s.kf_poses))
     return out
+
+
+def relocalization_phase(sys_, scfg, dev, revisit=tuple(range(20, 26))) -> dict:
+    """Phase 7 on the `System` that phase 6 drove, which then revisits frames
+    `revisit`; raises on a failed check.  Returns the phase's numbers and the
+    kernels' launch counts of its drive."""
+    import numpy as np
+    import torch
+    from orbslam3_tpu_torch.features import extractor
+    from orbslam3_tpu_torch.ops import brief, orb_patches
+    from orbslam3_tpu_torch.pipeline import relocalization
+    from orbslam3_tpu_torch.place import keyframe_db as kdb
+    from orbslam3_tpu_torch.place import vocab
+    from orbslam3_tpu_torch.utils import seeded_scene as scene
+
+    lc = sys_.loop_closer
+    if lc is None or lc.cfg.n_words != 65536:
+        _fail("the default configuration built no 65536-word keyframe database")
+    n_kf = sys_.n_kf_host
+    registered = lc.db.active.cpu().numpy()
+    if not np.array_equal(registered, sys_.map.kf_valid.cpu().numpy()) or registered.sum() < 5:
+        _fail(f"the database holds keyframes {np.nonzero(registered)[0].tolist()} of {n_kf}")
+    before = (sys_.map, sys_.bank, lc.db)          # immutable: a snapshot
+    n_maps = sys_.atlas.n_maps
+
+    # the drive, counted; the batch's arguments and results are kept
+    batches = []
+    run_batch = relocalization._reloc_batch
+
+    def spy(*args, **kw):
+        out = run_batch(*args, **kw)
+        batches.append((args[3], args[4], out[0], out[1]))
+        return out
+
+    orb_patches.reset_counters()
+    relocalization._reloc_batch = spy
+    try:
+        d = scene.drive_relocalization(sys_, scfg, revisit, dev)
+    finally:
+        relocalization._reloc_batch = run_batch
+    launches = orb_patches.launch_counts()
+    bad = scene.check_reloc_gates(sys_, d, n_maps)
+    if len(batches) != 1:
+        bad.append(f"{len(batches)} relocalization batches ran")
+    if bad:
+        _fail("relocalization gates failed: " + "; ".join(bad))
+    cand_idx, cand_ok, good, n_inl = (x.cpu().numpy() for x in batches[0])
+    winner = int(np.argmax(np.where(good, n_inl, -1)))
+
+    # words at 65536 anchors against a chunked evaluation of the distances
+    img = scene.render_revisit(scfg, revisit[:1])[revisit[0]]
+    ff = extractor.extract(torch.from_numpy(img).to(dev), scfg.orb)
+    words = vocab.assign_words(ff.desc, lc._unpacked)
+    best = torch.full((ff.desc.shape[0],), 1 << 20, dtype=torch.int32, device=dev)
+    plain = torch.zeros_like(words)
+    for lo in range(0, lc.cfg.n_words, 8192):
+        dist = brief.hamming_distance(ff.desc, lc.codebook[lo:lo + 8192])
+        dmin, arg = torch.min(dist, dim=1)
+        closer = dmin < best                        # strictly: the lower word keeps a tie
+        plain = torch.where(closer, arg.to(torch.int32) + lo, plain)
+        best = torch.where(closer, dmin, best)
+    if not torch.equal(words, plain):
+        _fail(f"assign_words: {int((words != plain).sum())} words differ from the plain evaluation")
+
+    # the query against float64 numpy on the same database
+    db = before[2]
+    bow = vocab.bow_vector(words, ff.valid, lc.cfg.n_words)
+    scores, common = kdb.query(db, bow)
+    tf, has, act = (x.cpu().numpy() for x in db)
+    b64 = bow.cpu().numpy().astype(np.float64)
+    idf = np.log(max(act.sum(), 1.0) / np.maximum((has & act[:, None]).sum(0), 1.0) + 1.0)
+    ref = (tf.astype(np.float64) * idf) @ (b64 * idf)
+    common_ref = (has & (b64 > 0)[None, :]).sum(1)
+    ok = act & (common_ref >= 5)
+    got = scores.cpu().numpy()
+    if not np.array_equal(got >= 0, ok) or not np.array_equal(common.cpu().numpy(), common_ref):
+        _fail("keyframe_db.query: masked keyframes or common-word counts differ from numpy's")
+    score_err = float(np.max(np.abs(got[ok] - ref[ok]) / ref[ok]))
+    if not score_err <= 1e-5:
+        _fail(f"keyframe_db.query: scores off by {score_err} relative")
+
+    # times (CUDA events), on the state from before the kidnap
+    def add_kf():
+        lc.db = db
+        lc.add_keyframe(before[0], n_kf, ff)
+
+    def query():
+        w = vocab.assign_words(ff.desc, lc._unpacked)
+        return kdb.query(db, vocab.bow_vector(w, ff.valid, lc.cfg.n_words))
+
+    c_idx, c_ok = batches[0][0], batches[0][1]
+
+    def batch():
+        return relocalization._reloc_batch(
+            before[0], before[1], ff, c_idx, c_ok, sys_.cam_params, sys_.cfg.cam_model,
+            sys_.cfg.orb.scale_factor, sys_.cfg.orb.n_levels, 30, generator=sys_.generator)
+
+    now = (sys_.map, sys_.bank, lc.db)
+    prof = {}
+    try:
+        add_ms = _event_ms(add_kf, runs=20)
+        query_ms = _event_ms(query, runs=20)
+        batch_ms = _event_ms(batch, runs=5)
+        # kernels per call and their summed device time; the word product's
+        # own kernel by name
+        from orbslam3_tpu_torch.utils import profile_keyframe
+        for name, fn, runs in (("add_keyframe", add_kf, 5), ("query", query, 5),
+                               ("batch", batch, 3)):
+            durs, per_call = profile_keyframe.kernel_durations(fn, ["", "gemm"], runs=runs)
+            prof[name] = dict(launches=per_call, device_ms=sum(durs[""]) / runs / 1e3,
+                              gemm_ms=sum(durs["gemm"]) / runs / 1e3)
+        sys_.map, sys_.bank, lc.db = before
+        attempts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hit, _, _ = relocalization.attempt_relocalization(sys_, ff, lc)
+            torch.cuda.synchronize()
+            attempts.append((time.perf_counter() - t0) * 1e3)
+            if not hit:
+                _fail("a repeated relocalization attempt on the kidnapped frame failed")
+    finally:
+        sys_.map, sys_.bank, lc.db = now
+    return dict(drive=d, launches=launches, n_admitted=int(cand_ok.sum()),
+                candidates=cand_idx[cand_ok].tolist(), n_good=int(good.sum()),
+                winner=int(cand_idx[winner]), winner_inliers=int(n_inl[winner]),
+                winner_frame=int(before[0].kf_frame_id[int(cand_idx[winner])]),
+                score_err=score_err, add_ms=add_ms, query_ms=query_ms, batch_ms=batch_ms,
+                attempt_ms=statistics.median(attempts), db_bytes=db.nbytes,
+                codebook_bytes=sum(x.numel() * x.element_size() for x in lc._unpacked),
+                profile=prof, word_flop=2 * ff.desc.shape[0] * 256 * lc.cfg.n_words,
+                n_registered=int(registered.sum()), revisit=revisit, n_blank=scene.N_BLANK)
 
 
 def patch_kernel_work(sel, angle) -> dict:
@@ -441,7 +595,41 @@ def main() -> int:
           f"{st['span']:.4g}; map, bank and view on the card; launches {sys_launches}",
           flush=True)
 
-    # 7. report -------------------------------------------------------------
+    # 7. a lost track recovered by relocalization -----------------------------
+    t0 = time.perf_counter()
+    rl = relocalization_phase(sys_, scfg, dev)
+    reloc_s = time.perf_counter() - t0
+    reloc_launches = rl["launches"]
+    rd = rl["drive"]
+    n_fed = rl["n_blank"] + len(rd.frames)
+    if reloc_launches != {"ic_moments": 0, "brief_desc": 0, "orb_describe": n_fed}:
+        _fail(f"launch counters {reloc_launches} for {n_fed} frames")
+    print(f"relocalization: {rl['n_registered']} keyframes in the database "
+          f"({rl['db_bytes']} bytes on the card, unpacked codebook {rl['codebook_bytes']}); "
+          f"{rl['n_blank']} textureless frames RECENTLY_LOST, then frame "
+          f"{rd.frames[rd.recovered]} of frames {rd.frames[0]}-{rd.frames[-1]} recovered OK by "
+          f"relocalization ({rd.inliers[rd.recovered]} inliers from the last pose): "
+          f"{rl['n_admitted']} candidates admitted {rl['candidates']}, {rl['n_good']} good, winner "
+          f"keyframe {rl['winner']} (frame {rl['winner_frame']}) with {rl['winner_inliers']} "
+          f"inliers; centre {rd.centre_err:.4g} world units and {rd.rot_err_deg:.4g} deg from "
+          f"the first visit's pose; later frames OK with {min(rd.inliers[rd.recovered + 1:])}-"
+          f"{max(rd.inliers[rd.recovered + 1:])} inliers, 0 resets, 0 stored maps; the "
+          f"recovering frame {rd.seconds[rd.recovered] * 1e3:.1f} ms; assign_words at 65536 "
+          f"words identical to the chunked plain evaluation, query within "
+          f"{rl['score_err']:.3g} relative of float64 numpy; add_keyframe "
+          f"{rl['add_ms']:.3f} ms, attempt: query {rl['query_ms']:.3f} ms + batch "
+          f"{rl['batch_ms']:.3f} ms (CUDA events), whole attempt {rl['attempt_ms']:.3f} ms on "
+          f"the host clock; phase {reloc_s:.1f} s; launches {reloc_launches}", flush=True)
+    for name, pr in rl["profile"].items():
+        print(f"  {name}: {pr['launches']} kernels per call, {pr['device_ms']:.3f} ms of device "
+              f"time, {pr['gemm_ms']:.3f} ms of it in matrix-product kernels", flush=True)
+    if rl["profile"]:
+        gemm = rl["profile"]["add_keyframe"]["gemm_ms"]
+        print(f"  word assignment: {rl['word_flop'] / 1e9:.1f} GFLOP in float32, "
+              f"{rl['word_flop'] / gemm / 1e9:.1f} TFLOP/s in its product kernel "
+              f"(bound {rl['word_flop'] / 67e12 * 1e3:.3f} ms at 67 TFLOP/s)", flush=True)
+
+    # 8. report -------------------------------------------------------------
     src = "orbslam3_tpu_torch/csrc/orb_patches.cu"
     replaces = {"ic_moments": "orbslam3_tpu/ops/pallas_patches.py:58",
                 "brief_desc": "orbslam3_tpu/ops/pallas_patches.py:76",
@@ -453,7 +641,8 @@ def main() -> int:
         {"name": k, "route": "cuda", "source": src, "replaces": replaces[k],
          "launches": sys_launches[k],
          "launches_per_path": {"tracking": launches[k], "keyframe": kf_launches[k],
-                               "system": sys_launches[k]},
+                               "system": sys_launches[k],
+                               "relocalization": reloc_launches[k]},
          "max_abs_err": err[k], "ms": ev_ms[k], "plain_ms": plain_ms[k],
          "bound_ms": work[k]["bound_ms"], "bound_by": work[k]["bound_by"],
          "library_ms": None, "device_ms": dev_ms[k], "bytes": work[k]["bytes"],

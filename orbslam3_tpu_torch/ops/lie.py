@@ -119,6 +119,26 @@ def normalize_rotation(R: torch.Tensor) -> torch.Tensor:
     return R
 
 
+def det3(M: torch.Tensor) -> torch.Tensor:
+    """Determinant of (..., 3, 3) matrices by cofactor expansion: a few
+    elementwise kernels, no factorization and no status read."""
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    return a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g)
+
+
+def normalize_rotation_svd(R: torch.Tensor) -> torch.Tensor:
+    """Exact projection onto SO(3) through the SVD: handles arbitrary
+    (possibly reflected or scaled) inputs, such as a raw linear pose
+    estimate, which the Newton-Schulz steps of `normalize_rotation` do not."""
+    U, _, Vh = torch.linalg.svd(R)
+    sign = torch.sign(det3(U @ Vh))
+    D = torch.ones_like(R[..., 0])
+    D = torch.cat([D[..., :2], sign[..., None]], dim=-1)
+    return (U * D[..., None, :]) @ Vh
+
+
 def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
     """Shepperd conversion by selects, (..., 3, 3) -> (..., 4) wxyz; the
     largest of the four pivots is taken, the first on ties."""

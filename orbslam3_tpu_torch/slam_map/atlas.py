@@ -26,7 +26,7 @@ class MapSession:
     map: mapstate.MapState
     bank: FeatureBank | None   # per-keyframe features, bindings, stereo rows
     trajectory: list
-    db: object = None   # archived place-recognition database (not ported yet)
+    db: object = None   # the map's place-recognition `KeyframeDB`, archived with it
 
 
 @dataclasses.dataclass

@@ -2,8 +2,9 @@
 
 numpy in, numpy out; nothing here imports JAX.  A test fills these from
 `jax.device_get(x)._asdict()` so that both sides compute on the same map,
-view, feature frame, feature bank, match set or two-view result.  uint32 descriptor words cross as int32 bit
-patterns (`.view(np.int32)`), the port's descriptor format.
+view, feature frame, feature bank, match set, two-view result, keyframe
+database or codebook.  uint32 descriptor and codebook words cross as int32
+bit patterns (`.view(np.int32)`), the port's descriptor format.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ import torch
 from ..features.extractor import FeatureFrame
 from ..geometry.twoview import TwoViewResult
 from ..ops.matching import Matches
+from ..place.keyframe_db import KeyframeDB
+from ..place.vocab import codebook_tensor as codebook_from_numpy  # (V, 8) uint32 -> int32
 from .feature_bank import FeatureBank
 from .state import MapState, PointView
 
@@ -51,6 +54,11 @@ def matches_from_numpy(fields: dict, device="cpu") -> Matches:
 
 def twoview_from_numpy(fields: dict, device="cpu") -> TwoViewResult:
     return _build(TwoViewResult, fields, device)
+
+
+def db_from_numpy(fields: dict, device="cpu") -> KeyframeDB:
+    """A JAX `KeyframeDB`'s three arrays (tf, has_word, active) as the port's."""
+    return _build(KeyframeDB, fields, device)
 
 
 def to_numpy(x):

@@ -291,6 +291,31 @@ def covisibility_weights(m: MapState, kf_idx) -> torch.Tensor:
     return _set_at(counts, kf_idx, 0)
 
 
+# one float32 (P, K) transient is 32 MiB at this entry count; beyond it the
+# chunked path keeps the transient at (chunk, K)
+_COVIS_DENSE_MAX_ENTRIES = 8 * 1024 * 1024
+
+
+def covisibility_matrix(m: MapState, chunk: int = 8192,
+                        dense_max_entries: int = _COVIS_DENSE_MAX_ENTRIES) -> torch.Tensor:
+    """(K, K) float32 shared-point counts W = A^T A over the live incidence
+    (the full covisibility graph; reference KeyFrame::UpdateConnections
+    pairwise counters, src/KeyFrame.cc:459).  Small maps: one product over
+    the float32 incidence.  Beyond the dense cutoff a loop over point blocks
+    accumulates W, so that no float32 (P, K) copy exists.  Counts are
+    integers below 2^24, exact in float32 in any order."""
+    live = live_incidence(m)
+    P, K = live.shape
+    if P * K <= dense_max_entries:
+        A = live.to(torch.float32)
+        return A.T @ A
+    W = torch.zeros((K, K), dtype=torch.float32, device=live.device)
+    for lo in range(0, P, chunk):
+        A = live[lo:lo + chunk].to(torch.float32)
+        W = W + A.T @ A
+    return W
+
+
 class PointView(NamedTuple):
     """Bounded local-map view for per-frame tracking: the covisibility
     neighbourhood's points gathered into V slots once per keyframe.  `idx`

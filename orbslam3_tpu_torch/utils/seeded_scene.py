@@ -1,6 +1,8 @@
 """Monocular drives on bench.py's scene, with ground truth: the per-frame
-and keyframe steps on a map seeded from ground-truth poses, and the whole
-`System` from raw frames (`drive_system`, at the end of this file).
+and keyframe steps on a map seeded from ground-truth poses, the whole
+`System` from raw frames (`drive_system`), and that `System` losing its track
+and recovering by relocalization (`drive_relocalization`, at the end of this
+file).
 
 The scene is `bench.py`'s (`bench_full_system`, bench.py:99-119): a
 textured ground plane seen from 5 units above along a gently weaving
@@ -478,3 +480,106 @@ def check_system_gates(sys_: system.System, d: SystemDrive,
         inliers=(min(inl), max(inl)) if inl else None, n_kf=d.n_kf[-1],
         n_points=n_pts, ate=rmse, scale=scale, span=span)
     return bad, stats
+
+
+# --- a lost System recovers by relocalization -----------------------------------
+
+class RelocDrive(NamedTuple):
+    """What `drive_relocalization` saw."""
+    blank_states: list     # state after each textureless frame
+    blank_poses: list      # pose returned for each (None when nothing was recovered)
+    frames: list           # the revisited frame indices
+    states: list           # state after each revisited frame
+    inliers: list          # local-map tracking inliers of each revisited frame
+    seconds: list          # host clock around `track_monocular` up to a synchronise
+    centre_err: float      # recovered camera centre against the first visit's, world units
+    rot_err_deg: float     # recovered rotation against the first visit's
+    recovered: int         # position in `frames` of the first OK frame, -1 if none
+
+
+N_BLANK = 3                  # textureless frames before the revisit
+REVISIT_NOISE_SEED = 1234    # the revisited frames' sensor noise
+
+
+def render_revisit(cfg: SceneConfig, indices) -> dict[int, np.ndarray]:
+    """Frames `indices` of the scene rendered again with fresh sensor noise
+    (the texture is `render_frames`': the generator's first draw)."""
+    tex = sr.block_texture(np.random.default_rng(cfg.seed), block=cfg.tex_block)
+    rng = np.random.default_rng(REVISIT_NOISE_SEED)
+    frames = {}
+    for i in indices:
+        R_cw, t_cw = bench_pose(i)
+        img = sr.render_plane(R_cw, t_cw, np.asarray(cfg.K4), cfg.hw, tex,
+                              tex_scale=cfg.tex_scale)
+        img += rng.normal(0, cfg.noise_sigma, img.shape).astype(np.float32)
+        frames[i] = np.clip(img, 0, 255).astype(np.uint8)
+    return frames
+
+
+def drive_relocalization(sys_: system.System, cfg: SceneConfig, revisit, device):
+    """After `drive_system`: feed `N_BLANK` textureless frames (the track is
+    lost, nothing to recognise), then frames `revisit` of the scene, seen
+    much earlier on the path, rendered with fresh noise; timestamps go on
+    from the last frame's at 0.1 s a frame.  Everything goes through
+    `track_monocular`.  Returns a RelocDrive; the pose errors compare the
+    first recovered frame with the pose the system itself recorded for that
+    frame index the first time, the centre distance scaled to world units by
+    the trajectory's Umeyama scale."""
+    sync = _sync_fn(device)
+    _, scale, _ = system_ate(sys_)
+    first = {int(round(ts * 10.0)): (R, t) for ts, R, t in sys_.trajectory}
+    ts = sys_._prev_frame_ts
+    gray = np.full(cfg.hw, 128, np.uint8)
+    d = RelocDrive([], [], list(revisit), [], [], [], float("nan"), float("nan"), -1)
+    for _ in range(N_BLANK):
+        ts += 0.1
+        state, pose = sys_.track_monocular(gray, ts)
+        d.blank_states.append(state)
+        d.blank_poses.append(pose)
+    imgs = render_revisit(cfg, revisit)
+    recovered, dc, dr = -1, float("nan"), float("nan")
+    for n, fi in enumerate(revisit):
+        ts += 0.1
+        sync()
+        t0 = time.perf_counter()
+        state, pose = sys_.track_monocular(imgs[fi], ts)
+        sync()
+        d.seconds.append(time.perf_counter() - t0)
+        d.states.append(state)
+        d.inliers.append(sys_.last_track_inliers)
+        if recovered < 0 and state == system.OK:
+            recovered = n
+            R0, c0 = first[fi]
+            dc = float(np.linalg.norm(pose[1] - c0)) * scale
+            cos = (np.trace(pose[0] @ R0.T) - 1.0) / 2.0
+            dr = float(np.degrees(np.arccos(np.clip(cos, -1.0, 1.0))))
+    return d._replace(centre_err=dc, rot_err_deg=dr, recovered=recovered)
+
+
+def check_reloc_gates(sys_: system.System, d: RelocDrive, n_maps_before: int,
+                      max_center_err: float = 0.05, max_rot_err_deg: float = 0.5) -> list[str]:
+    """Gate failures of a `drive_relocalization` run (empty = passed): the
+    textureless frames leave the state RECENTLY_LOST and recover nothing; the
+    first revisited frame or the next is OK, through relocalization (its own
+    local-map tracking had fewer than `min_track_inliers` inliers); no reset
+    and no new map; the recovered pose within the bounds of the first visit's;
+    every later frame OK with at least `min_track_inliers` inliers."""
+    bad = []
+    min_inl = sys_.cfg.min_track_inliers
+    if any(s != system.RECENTLY_LOST for s in d.blank_states) or \
+            any(p is not None for p in d.blank_poses):
+        bad.append(f"textureless frames: states {d.blank_states}")
+    if d.recovered not in (0, 1):
+        return bad + [f"not recovered on the first two revisited frames (states {d.states})"]
+    if not d.inliers[d.recovered] < min_inl:
+        bad.append(f"frame {d.frames[d.recovered]} was tracked from the last pose "
+                   f"({d.inliers[d.recovered]} inliers), not relocalized")
+    if sys_.n_resets or sys_.n_map_switches or sys_.atlas.n_maps != n_maps_before:
+        bad.append(f"{sys_.n_resets} resets, {sys_.n_map_switches} map switches, "
+                   f"{sys_.atlas.n_maps} stored maps")
+    if not (d.centre_err <= max_center_err and d.rot_err_deg <= max_rot_err_deg):
+        bad.append(f"recovered pose off by {d.centre_err:.4g} units, {d.rot_err_deg:.4g} deg")
+    after = range(d.recovered + 1, len(d.frames))
+    if any(d.states[i] != system.OK or d.inliers[i] < min_inl for i in after):
+        bad.append(f"after the recovery: states {d.states}, inliers {d.inliers}")
+    return bad

@@ -1,6 +1,7 @@
 """The ORB patch kernels (CUDA, sm_90a) against their plain PyTorch twins, the
-keyframe step on the card against the same step on the CPU, and the `System`
-from raw frames on the card.
+keyframe step on the card against the same step on the CPU, the `System`
+from raw frames on the card, the 65536-word vocabulary and a relocalization
+on the card.
 
 These need an NVIDIA GPU with nvcc and are marked `gpu`; without a card they
 skip.  With a GPU: `python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest`
@@ -201,3 +202,48 @@ def test_system_boots_from_raw_frames_on_the_card(dev):
     assert sys_.view.xyz.device == dev
     assert orb_patches.launch_counts() == {
         "ic_moments": 0, "brief_desc": 0, "orb_describe": 60}
+
+
+def test_assign_words_at_65536_words_on_the_card(dev):
+    """The default vocabulary on the card: the words of 1200 descriptors
+    (anchors with a few bits flipped, and random ones) identical to the
+    CPU's, where every distance is an exact integer too, and identical to a
+    chunked evaluation through `brief.hamming_distance`."""
+    from orbslam3_tpu_torch.place import vocab
+    rng = np.random.default_rng(5)
+    cb = vocab.load_codebook(65536)
+    d = cb[rng.integers(0, 65536, 1200)].copy()
+    d[np.arange(1200), rng.integers(0, 8, 1200)] ^= np.uint32(1) << rng.integers(0, 32, 1200).astype(np.uint32)
+    d[600:] = rng.integers(0, 2 ** 32, (600, 8), dtype=np.uint32)
+    desc = torch.from_numpy(d.view(np.int32))
+    on_cpu = vocab.assign_words(desc, vocab.codebook_tensor(cb))
+    cb_dev = vocab.codebook_tensor(cb, dev)
+    on_card = vocab.assign_words(desc.to(dev), vocab.unpack_codebook(cb_dev))
+    torch.cuda.synchronize()
+    assert on_card.device == dev and torch.equal(on_card.cpu(), on_cpu)
+    chunked = vocab.assign_words_chunked(desc.to(dev), cb_dev, chunk=500)
+    assert torch.equal(chunked, on_card)
+    dist = brief.hamming_distance(desc.to(dev)[:64], cb_dev)
+    assert torch.equal(torch.argmin(dist, dim=1).to(torch.int32), on_card[:64])
+
+
+def test_system_relocalizes_on_the_card(dev):
+    """The smoke run's relocalization phase at a small size: the `System`
+    boots from 60 rendered frames on the card, loses its track on 3
+    textureless frames and recovers on a frame from early on the path through
+    the keyframe database and the batched MLPnP, with no reset."""
+    cfg = ss.SceneConfig(hw=(240, 376), K4=(400.0, 400.0, 188.0, 120.0),
+                         orb=OrbParams(n_features=500, n_levels=4),
+                         capacity=MapCapacity(n_kf=16, n_pt=4096, n_obs=16384),
+                         seed_frames=(), track_frames=tuple(range(60)),
+                         view_points=2048, ba_caps=(8, 1024, 4096), new_pt_budget=256)
+    sys_, drive = ss.drive_system(cfg, ss.render_frames(cfg), None)
+    bad, stats = ss.check_system_gates(sys_, drive, init_by=40)
+    assert bad == []
+    lc = sys_.loop_closer
+    assert lc.db.tf.device == dev and lc.codebook.device == dev
+    assert torch.equal(lc.db.active, sys_.map.kf_valid)
+    f0 = stats["init_frame"]
+    d = ss.drive_relocalization(sys_, cfg, tuple(range(f0 + 3, f0 + 9)), None)
+    assert ss.check_reloc_gates(sys_, d, 0) == []
+    assert sys_.R_cur.device == dev

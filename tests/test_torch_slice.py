@@ -74,10 +74,13 @@ names = [m.name for m in pkgutil.walk_packages(orbslam3_tpu_torch.__path__,
                                                "orbslam3_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-for name in ("geometry.twoview", "slam_map.atlas", "utils.align", "pipeline.system"):
+for name in ("geometry.twoview", "slam_map.atlas", "utils.align", "pipeline.system",
+             "place.vocab", "place.keyframe_db", "geometry.mlpnp", "pipeline.relocalization",
+             "pipeline.loop_closing"):
     assert "orbslam3_tpu_torch." + name in names, name
 from orbslam3_tpu_torch.pipeline.system import SlamConfig, System
-assert System(SlamConfig(), device="cpu").state == 0
+sys_ = System(SlamConfig(), device="cpu")
+assert sys_.state == 0 and sys_.loop_closer.db.tf.shape == (256, 65536)
 import chip_smoke
 assert "jax" not in [m.split(".")[0] for m, v in sys.modules.items() if v is not None]
 print(len(names))
@@ -89,7 +92,7 @@ def test_port_and_smoke_import_without_jax():
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": REPO})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 37   # every module of the package
+    assert int(out.stdout.split()[-1]) >= 43   # every module of the package
 
 
 def _smoke(cwd):

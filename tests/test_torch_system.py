@@ -46,8 +46,7 @@ def _tcfg(**kw):
 
 
 def _jcfg(**kw):
-    return jsystem.SlamConfig(map_capacity=jstate.MapCapacity(**CAP),
-                              enable_relocalization=False, **{**COMMON, **kw})
+    return jsystem.SlamConfig(map_capacity=jstate.MapCapacity(**CAP), **{**COMMON, **kw})
 
 
 @functools.lru_cache(maxsize=None)
@@ -374,14 +373,21 @@ def test_flags_of_parts_not_ported_are_refused(flag):
         tsystem.System(tsystem.SlamConfig(**flag), device="cpu")
 
 
-def test_default_config_constructs_without_a_keyframe_database():
-    """`enable_relocalization` is true by default, as in the JAX package;
-    the port reads it and builds no database."""
+def test_default_config_builds_the_keyframe_database():
+    """`enable_relocalization` is true by default, as in the JAX package, and
+    builds the `LoopCloser` with the 65536-word vocabulary and an empty
+    keyframe database of the map's keyframe capacity; switched off, there is
+    none."""
     small = dataclasses.replace(tsystem.SlamConfig(), map_capacity=MapCapacity(**CAP))
     assert small.enable_relocalization
     sys_ = tsystem.System(small, device="cpu")
     assert sys_.state == tsystem.NO_IMAGES_YET and sys_.map.kf_R.device.type == "cpu"
-    assert not hasattr(sys_, "loop_closer")
+    lc = sys_.loop_closer
+    assert lc is not None and lc.cfg.n_words == 65536
+    assert lc.codebook.shape == (65536, 8) and lc.codebook.dtype == torch.int32
+    assert lc.db.tf.shape == (CAP["n_kf"], 65536) and not bool(lc.db.active.any())
+    off = tsystem.System(dataclasses.replace(small, enable_relocalization=False), device="cpu")
+    assert off.loop_closer is None
 
 
 def test_rot_to_quat_matches_jax():
@@ -408,20 +414,87 @@ def test_umeyama_matches_jax():
     np.testing.assert_allclose(tt, np.asarray(tj), atol=1e-4)
 
 
-def test_system_boots_from_raw_frames_small():
-    """60 rendered frames (240x376, 500 features over 4 levels) through
-    `track_monocular` alone on the CPU.  The small image sees less of the
-    plane, so initialization takes until about frame 30; the other gates
-    are the full-size ones."""
+@pytest.fixture(scope="module")
+def small_drive():
+    """60 rendered frames of bench.py's plane (240x376, 500 features over 4
+    levels) through `track_monocular` alone on the CPU."""
     cfg = ss.SceneConfig(hw=(240, 376), K4=(400.0, 400.0, 188.0, 120.0),
                          orb=H.SMALL.orb, capacity=H.SMALL.capacity, seed_frames=(),
                          track_frames=tuple(range(60)), view_points=2048,
                          ba_caps=(8, 1024, 4096), new_pt_budget=256)
     sys_, drive = ss.drive_system(cfg, ss.render_frames(cfg), "cpu")
+    return cfg, sys_, drive
+
+
+def test_system_boots_from_raw_frames_small(small_drive):
+    """60 rendered frames (240x376, 500 features over 4 levels) through
+    `track_monocular` alone on the CPU.  The small image sees less of the
+    plane, so initialization takes until about frame 30; the other gates
+    are the full-size ones."""
+    cfg, sys_, drive = small_drive
     bad, stats = ss.check_system_gates(sys_, drive, init_by=40)
     assert bad == []
     assert stats["init"]["used_homography"]      # the scene is a plane
     assert stats["n_kf"] >= 5 and sys_.map.kf_R.device.type == "cpu"
+
+
+def test_plane_candidates_jax_reflects_where_the_port_rotates(small_drive, monkeypatch):
+    """The smoke run's relocalization phase at the small size, on the CPU,
+    with its gates; and the candidate sets of its recovering attempt (each
+    admitted keyframe's matched plane points) given to the JAX `solve_mlpnp`
+    as well, the port with the samples JAX drew.  The port returns a rotation
+    for every candidate.  Where JAX returns a rotation too, the inlier sets
+    are identical, R agrees within 1e-4 and t within 1e-3 relative.  For at
+    least one candidate JAX returns a reflection (det -1): the port's
+    rotation times the mirror through the plane.  The map's points are not
+    exactly coplanar and the mirror moves each by twice its distance from
+    the plane, so there the inliers land within 5e-2 of the scene's unit of
+    where the port puts them and the inlier counts agree within 3."""
+    import jax
+    from orbslam3_tpu.geometry import mlpnp as jmlpnp
+    from orbslam3_tpu_torch.geometry import mlpnp as tmlpnp
+    cfg, sys_, drive = small_drive
+    calls = []
+
+    def recording(X, uv, valid, cam_model, cam_params, **kw):
+        res = solve(X, uv, valid, cam_model, cam_params, **kw)
+        calls.append((X, uv, valid, cam_params, kw["inv_sigma2"], res))
+        return res
+
+    solve = tmlpnp.solve_mlpnp
+    monkeypatch.setattr(tmlpnp, "solve_mlpnp", recording)
+    f0 = drive.frames[drive.init_frame]
+    d = ss.drive_relocalization(sys_, cfg, tuple(range(f0 + 3, f0 + 9)), "cpu")
+    assert ss.check_reloc_gates(sys_, d, 0) == []
+    X, uv, ok, cam, is2, won = calls[-1]          # the attempt that recovered
+    assert bool(won.success.any())
+    admitted = [c for c in range(X.shape[0]) if bool(ok[c].any())]
+    assert len(admitted) >= 3
+    keys = jax.random.split(jax.random.PRNGKey(0), X.shape[0])
+    n_reflected = 0
+    for c in admitted:
+        Xc, okc = X[c].numpy(), ok[c].numpy()
+        rj = jmlpnp.solve_mlpnp(jnp.asarray(Xc), jnp.asarray(uv.numpy()), jnp.asarray(okc),
+                                "pinhole", jnp.asarray(cam.numpy()), keys[c], iterations=300,
+                                min_inliers=30, inv_sigma2=jnp.asarray(is2.numpy()))
+        idx = H.jax_mlpnp_samples(keys[c], okc, is2.numpy(), 300)
+        rt = solve(X[c], uv, ok[c], "pinhole", cam, idx=torch.from_numpy(idx.copy()),
+                   iterations=300, min_inliers=30, inv_sigma2=is2)
+        Rj, tj = np.asarray(rj.R), np.asarray(rj.t)
+        assert np.linalg.det(rt.R.numpy()) == pytest.approx(1.0, abs=1e-4)
+        assert bool(rt.success) == bool(rj.success)
+        on = np.asarray(rj.inliers)
+        if np.linalg.det(Rj) < 0:
+            n_reflected += 1
+            assert np.linalg.det(Rj) == pytest.approx(-1.0, abs=1e-4)
+            assert abs(int(rt.n_inliers) - int(rj.n_inliers)) <= 3
+            assert np.abs((Xc[on] @ Rj.T + tj)
+                          - (Xc[on] @ rt.R.numpy().T + rt.t.numpy())).max() < 5e-2
+        else:
+            np.testing.assert_array_equal(rt.inliers.numpy(), on)
+            np.testing.assert_allclose(rt.R.numpy(), Rj, atol=1e-4)
+            np.testing.assert_allclose(rt.t.numpy(), tj, atol=1e-3 * float(np.linalg.norm(tj)))
+    assert n_reflected >= 1
 
 
 @pytest.mark.slow

@@ -5,7 +5,10 @@
 `track_with_keyframes` do with the port, on the same numpy frames, so that a
 test can hold the two against each other and against ground truth.  The
 keyframe step runs through the JAX `System`'s own programs (`_kf_step`,
-`_kf_pose_refresh`, `_post_ba_stages`).
+`_kf_pose_refresh`, `_post_ba_stages`).  Also here: the RANSAC samples that
+the JAX MLPnP and relocalization draw from a key, for injection into the
+port, and the copy of a JAX `System`'s state and keyframe database into a
+port `System`.
 """
 
 import functools
@@ -124,7 +127,9 @@ def track_jax(cfg, m, view, frames):
 
 
 def jax_system(cfg):
-    """A JAX System with the scene's SlamConfig (no keyframe database)."""
+    """A JAX System with the scene's SlamConfig.  No keyframe database: the
+    seeded drives call the keyframe programs directly, outside a `System`, so
+    neither side feeds one."""
     return jsystem.System(jsystem.SlamConfig(
         cam_model="pinhole", cam_params=cfg.K4, image_hw=cfg.hw,
         orb=jax_params(cfg), map_capacity=jax_capacity(cfg),
@@ -201,3 +206,40 @@ def copy_system_state(jsys, tsys) -> None:
                  "_prev_frame_ts", "localization_only"):
         setattr(tsys, name, getattr(jsys, name))
     tsys.trajectory = [(ts, np.array(R), np.array(t)) for ts, R, t in jsys.trajectory]
+
+
+def jax_mlpnp_samples(key, valid, inv_sigma2, iterations, sample=6):
+    """The (iterations, sample) indices that the JAX `solve_mlpnp` draws with
+    `key` (mlpnp.py:169-172), for injection into the port's `idx`."""
+    wp = jnp.asarray(valid).astype(jnp.float32) * jnp.asarray(inv_sigma2) + 1e-9
+    idx = jax.random.categorical(key, jnp.log(wp)[None, :].repeat(iterations * sample, 0))
+    return np.asarray(idx.reshape(iterations, sample))
+
+
+def jax_reloc_samples(m, bank, ff, cand_idx, cand_ok, key, scale_factor, n_levels):
+    """The (C, 300, 6) indices that the JAX `_reloc_batch` draws: one key per
+    candidate (relocalization.py:72), each over that candidate's match
+    weights, which are recomputed here as `per_cand` computes them."""
+    from orbslam3_tpu.ops import matching as jmatching
+    P, K = m.pt_xyz.shape[0], bank.desc.shape[0]
+    sf = scale_factor ** jnp.clip(ff.octave, 0, n_levels - 1).astype(jnp.float32)
+    inv_s2 = 1.0 / (sf * sf)
+    keys = jax.random.split(key, len(cand_idx))
+    out = []
+    for ci, ok, k in zip(np.asarray(cand_idx), np.asarray(cand_ok), keys):
+        ci = int(np.clip(ci, 0, K - 1))
+        c_kp_pt = bank.kp_pt[ci]
+        mm = jmatching.match_nn(
+            ff.desc, bank.desc[ci],
+            mask=ff.valid[:, None] & bank.valid[ci][None, :] & (c_kp_pt >= 0)[None, :],
+            max_dist=jmatching.TH_LOW, nn_ratio=0.75, angles_a=ff.angle,
+            angles_b=bank.angle[ci], check_rotation=True)
+        pt_idx = jnp.clip(c_kp_pt[jnp.maximum(mm.idx, 0)], 0, P - 1)
+        match_ok = mm.valid & m.pt_valid[pt_idx] & bool(ok)
+        out.append(jax_mlpnp_samples(k, match_ok, inv_s2, 300))
+    return np.stack(out)
+
+
+def copy_keyframe_db(jsys, tsys) -> None:
+    """Copy a JAX `System`'s keyframe database into a port `System`'s."""
+    tsys.loop_closer.db = convert.db_from_numpy(fields(jsys.loop_closer.db), tsys.device)
