@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Drives the port's main paths, the per-frame monocular step, the synchronous
-keyframe step, the whole `System` from raw frames and its recovery of a lost
-track by relocalization, at the JAX package's default monocular configuration (480x752 image, 1200 ORB features over 8
+keyframe step, the whole `System` from raw frames, its recovery of a lost
+track by relocalization and the mono-inertial `System`, at the JAX package's default monocular configuration (480x752 image, 1200 ORB features over 8
 levels, map capacity 256 keyframes / 24576 points / 196608 observations, a
 local view of 8192 points over 12 keyframes; window BA caps 16 / 4096 /
 12288, 6 LM steps over an 8-keyframe window, 4 triangulation neighbours, 768
@@ -83,11 +83,30 @@ new points at most):
      keyframes, scores within 1e-5 relative).  Timed with CUDA events on the
      state from before the kidnap: `add_keyframe`, the query half of an
      attempt (words, BoW vector, scores) and its batch half (8 candidates x
-     300 MLPnP hypotheses), and a whole attempt on the host clock.
+     300 MLPnP hypotheses), and a whole attempt on the host clock;
+  8. inertial: builds `InertialSystem(cfg, icfg)` on the card with
+     bench.py's mono-inertial configuration (bench.py:210-227: the same
+     camera and ORB, `min_init_matches=60`, `min_track_inliers=20`,
+     `max_frames_between_kf=6`, the default map capacity; 200 Hz IMU,
+     `init_time_s=2.0`, `init_min_kfs=6`, `refine_time_s=5.0`, VIBA2 off)
+     and feeds it bench.py's 128 frames (80 + 48) of `utils/imu_scene` as
+     bench.py's host loop does: the IMU samples through `grab_imu`, the
+     uint8 frame through `track_monocular` (the path's vertical bob ramps in
+     after 1.5 s, see `imu_scene`).  OK on every frame after
+     initialization, no reset; the IMU initialized by frame 80 and VIBA1
+     done by frame 127; more than 200 valid points; the trajectory from the
+     IMU initialization on, aligned with scale to the ground truth, with
+     |s - 1| < 0.12 and RMSE < 0.1 (metric scale); map, bank, view and bias
+     on the card; `orb_describe`'s counter equal to the 128 frames.  Prints
+     the IMU-init frame split into `inertial_only_init`, reintegration and
+     FullInertialBA, the VI window BA, medians per frame kind on the host
+     clock, and launches and device milliseconds of one profiled frame of
+     each kind (torch.profiler's kernel records).
 
 Each phase prints one line (phase 6 three more before it, phase 7 four more
 after it: kernels per call and device time of `add_keyframe` and of the two
-halves of an attempt, from torch.profiler's kernel records); the kernels' JSON
+halves of an attempt, from torch.profiler's kernel records; phase 8 one per
+frame kind after it); the kernels' JSON
 line and the card's line precede the last line, `{"ok": true, "device":
 {...}}`.  Any failure raises and exits non-zero before it.
 """
@@ -338,6 +357,136 @@ def relocalization_phase(sys_, scfg, dev, revisit=tuple(range(20, 26))) -> dict:
                 codebook_bytes=sum(x.numel() * x.element_size() for x in lc._unpacked),
                 profile=prof, word_flop=2 * ff.desc.shape[0] * 256 * lc.cfg.n_words,
                 n_registered=int(registered.sum()), revisit=revisit, n_blank=scene.N_BLANK)
+
+
+def inertial_phase(dev) -> dict:
+    """Phase 8 on device `dev`: the mono-inertial System on
+    `imu_scene.InertialScene()`; raises on a failed gate.  Returns the
+    phase's numbers and the kernels' launch counts of its drive."""
+    import numpy as np
+    import torch
+    from orbslam3_tpu_torch.ops import orb_patches
+    from orbslam3_tpu_torch.solver import inertial as inertial_solver
+    from orbslam3_tpu_torch.utils import imu_scene as scene
+    from orbslam3_tpu_torch.utils import profile_keyframe
+
+    cfg = scene.InertialScene()
+    t0 = time.perf_counter()
+    frames = scene.render_frames(cfg)
+    render_s = time.perf_counter() - t0
+
+    def timed(store, fn):
+        """fn, with a pair of CUDA events around each call kept in store."""
+        def wrapper(*a, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            store.append((start, end))
+            return out
+        return wrapper
+
+    ev = {"init_solve": [], "fiba": [], "window_ba": [], "imu_stage": []}
+    reint = []        # per IMU stage, the reintegrations' events
+    solve = inertial_solver.inertial_only_init
+    inertial_solver.inertial_only_init = timed(ev["init_solve"], solve)
+    profiled, kinds_seen = {}, {}
+
+    def wrap(i, sys_):
+        if i == 0:
+            # the System's own methods, timed (instance attributes)
+            sys_._vi_ba_dispatch = timed(ev["window_ba"], sys_._vi_ba_dispatch)
+            sys_._full_ba = timed(ev["fiba"], sys_._full_ba)
+            stage = sys_._initialize_imu
+            raw = sys_._preint_raw
+            in_stage = []
+
+            def stage_spy(*a, **kw):
+                in_stage.append(1)
+                reint.append([])
+                try:
+                    return timed(ev["imu_stage"], stage)(*a, **kw)
+                finally:
+                    in_stage.clear()
+
+            sys_._initialize_imu = stage_spy
+            sys_._preint_raw = lambda *a: (timed(reint[-1], raw) if in_stage else raw)(*a)
+        kind = scene.expected_kind(sys_, i)
+        if kind is None or kind in profiled or i < 10:
+            return None
+        return profile_keyframe.DeviceWork(kind)
+
+    def on_frame(i, sys_, kind):
+        kinds_seen.setdefault(kind, []).append(i)
+        w = profile_keyframe.DeviceWork.last
+        if w is not None and w.frame is None:
+            w.frame = i
+            if w.kind == kind:
+                profiled[kind] = w
+        profile_keyframe.DeviceWork.last = None
+
+    orb_patches.reset_counters()
+    t0 = time.perf_counter()
+    try:
+        sys_, d = scene.drive(cfg, frames, dev, sync=torch.cuda.synchronize, wrap=wrap,
+                              on_frame=on_frame)
+    finally:
+        inertial_solver.inertial_only_init = solve
+    phase_s = time.perf_counter() - t0
+    launches = orb_patches.launch_counts()
+    bad, st = scene.check_gates(cfg, sys_, d)
+    if launches != {"ic_moments": 0, "brief_desc": 0, "orb_describe": cfg.frames}:
+        bad.append(f"launch counters {launches} for {cfg.frames} frames")
+    for name, tensor in (("map", sys_.map.pt_xyz), ("bank", sys_.bank.xy),
+                         ("view", sys_.view.xyz), ("bias", sys_.bias)):
+        if tensor.device.type != "cuda":
+            bad.append(f"the {name} is on {tensor.device}")
+    if bad:
+        _fail("inertial gates failed: " + "; ".join(bad))
+    torch.cuda.synchronize()
+    ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in ev.items()}
+    ms["reintegrate"] = [sum(a.elapsed_time(b) for a, b in v) for v in reint]
+    ms["reintegrated"] = [len(v) for v in reint]
+    prof_frames = {w.frame for w in profiled.values()}
+    per_kind = {}
+    for kind, idx in kinds_seen.items():
+        secs = [d.seconds[i] for i in idx if i not in prof_frames]
+        w = profiled.get(kind)
+        per_kind[kind] = dict(
+            frames=len(idx), median_ms=statistics.median(secs) * 1e3 if secs else None,
+            launches=None if w is None else w.launches,
+            device_ms=None if w is None else w.device_ms,
+            profiled_frame=None if w is None else w.frame)
+    return dict(stats=st, drive=d, launches=launches, per_kind=per_kind, ms=ms,
+                phase_s=phase_s, render_s=render_s, n_frames=cfg.frames)
+
+
+def print_inertial(ip: dict) -> None:
+    """Phase 8's lines."""
+    ist, ims, il = ip["stats"], ip["ms"], ip["launches"]
+    print(f"inertial: {ip['n_frames']} frames through grab_imu + track_monocular in "
+          f"{ip['phase_s']:.1f} s (rendering {ip['render_s']:.1f} s before); initialised at "
+          f"frame {ist['init_frame']}, IMU initialized at frame {ist['imu_init_frame']}, VIBA1 "
+          f"at frame {ist['viba1_frame']}; OK on every later frame, 0 resets; {ist['n_kf']} "
+          f"keyframes ({ist['n_kf'] - ist['n_kf_valid']} culled), {ist['n_points']} valid map "
+          f"points; after the IMU init the trajectory aligns with scale {ist['scale']:.5f} "
+          f"(|s - 1| < 0.12), ATE RMSE {ist['ate']:.5g} (< 0.1); map, bank, view and bias on the "
+          f"card; launches {il}", flush=True)
+    for n, t in enumerate(ims["imu_stage"]):
+        # a stage whose scale is refused runs neither the reintegration nor the FIBA
+        fiba = f"{ims['fiba'][n]:.1f} ms" if n < len(ims["fiba"]) else "not run"
+        print(f"  IMU stage {n + 1}: {t:.1f} ms (CUDA events): inertial_only_init "
+              f"{ims['init_solve'][n]:.1f} ms, reintegration of {ims['reintegrated'][n]} factors "
+              f"{ims['reintegrate'][n]:.1f} ms, FullInertialBA {fiba}", flush=True)
+    wb = ims["window_ba"]
+    print(f"  VI window BA: median {statistics.median(wb):.1f} ms over {len(wb)} keyframes "
+          f"(CUDA events)" if wb else "  VI window BA: never ran", flush=True)
+    for kind, k in ip["per_kind"].items():
+        dm = "not measured" if k["device_ms"] is None else f"{k['device_ms']:.2f} ms"
+        la = "not measured" if k["launches"] is None else str(k["launches"])
+        md = "n/a" if k["median_ms"] is None else f"{k['median_ms']:.1f} ms"
+        print(f"  {kind}: {k['frames']} frames, median {md} on the host clock; frame "
+              f"{k['profiled_frame']} profiled: {la} kernels, {dm} of device time", flush=True)
 
 
 def patch_kernel_work(sel, angle) -> dict:
@@ -629,7 +778,12 @@ def main() -> int:
               f"{rl['word_flop'] / gemm / 1e9:.1f} TFLOP/s in its product kernel "
               f"(bound {rl['word_flop'] / 67e12 * 1e3:.3f} ms at 67 TFLOP/s)", flush=True)
 
-    # 8. report -------------------------------------------------------------
+    # 8. the mono-inertial System -------------------------------------------
+    ip = inertial_phase(dev)
+    il = ip["launches"]
+    print_inertial(ip)
+
+    # report ----------------------------------------------------------------
     src = "orbslam3_tpu_torch/csrc/orb_patches.cu"
     replaces = {"ic_moments": "orbslam3_tpu/ops/pallas_patches.py:58",
                 "brief_desc": "orbslam3_tpu/ops/pallas_patches.py:76",
@@ -642,7 +796,7 @@ def main() -> int:
          "launches": sys_launches[k],
          "launches_per_path": {"tracking": launches[k], "keyframe": kf_launches[k],
                                "system": sys_launches[k],
-                               "relocalization": reloc_launches[k]},
+                               "relocalization": reloc_launches[k], "inertial": il[k]},
          "max_abs_err": err[k], "ms": ev_ms[k], "plain_ms": plain_ms[k],
          "bound_ms": work[k]["bound_ms"], "bound_by": work[k]["bound_by"],
          "library_ms": None, "device_ms": dev_ms[k], "bytes": work[k]["bytes"],

@@ -68,19 +68,22 @@ def log_so3(R: torch.Tensor) -> torch.Tensor:
     Trace formula with a fallback near pi.  The angle comes from
     atan2(|w_unnorm|, cos) with the double-where guard at zero rotation
     (lie.py:68): arccos has an infinite derivative at +-1, and keeping the
-    same form keeps the same numbers (and finite gradients later).
+    same form keeps the same numbers (and finite gradients later).  The
+    scalars per rotation keep a trailing dimension of 1: under
+    `torch.func.jacfwd`, torch 2.13 gives a 0-d float32 tensor combined with
+    a Python float a float64 tangent.
     """
-    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    tr = (R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2])[..., None]
     cos_t = torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0)
     w_unnorm = vee(R - R.transpose(-1, -2)) * 0.5  # = sin(theta) * axis
-    s2 = torch.sum(w_unnorm * w_unnorm, dim=-1)
+    s2 = torch.sum(w_unnorm * w_unnorm, dim=-1, keepdim=True)
     small = s2 < 1e-10
     s2_safe = torch.where(small, torch.ones_like(s2), s2)
     sin_t = torch.sqrt(s2_safe)
     theta = torch.atan2(sin_t, cos_t)
     near_pi = cos_t < math.cos(math.pi - 1e-3)
     scale = torch.where(small, torch.ones_like(theta), theta / sin_t)
-    w_generic = w_unnorm * scale[..., None]
+    w_generic = w_unnorm * scale
     theta_pi = math.pi - torch.asin(
         torch.clamp(torch.sqrt(s2 + 1e-20), 0.0, 1.0 - 1e-7))
     B = R + _eye_like(R)
@@ -89,8 +92,8 @@ def log_so3(R: torch.Tensor) -> torch.Tensor:
     col = torch.gather(B, -1, k[..., None, None].expand(B.shape[:-1] + (1,)))[..., 0]
     axis = col / (torch.linalg.norm(col, dim=-1, keepdim=True) + _EPS)
     sgn = torch.where(torch.sum(axis * w_unnorm, dim=-1, keepdim=True) < 0, -1.0, 1.0)
-    w_pi = axis * sgn * theta_pi[..., None]
-    return torch.where(near_pi[..., None], w_pi, w_generic)
+    w_pi = axis * sgn * theta_pi
+    return torch.where(near_pi, w_pi, w_generic)
 
 
 def right_jacobian_so3(w: torch.Tensor) -> torch.Tensor:

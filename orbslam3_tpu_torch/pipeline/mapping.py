@@ -4,9 +4,11 @@ BA window.
 Counterpart of `orbslam3_tpu/pipeline/mapping.py` (parity target: the
 reference LocalMapping stages, src/LocalMapping.cc: CreateNewMapPoints
 :413-726 and the local BA dispatch :117-152).  The window BA runs the
-grid solver with observations from the FeatureBank or the COO list; the
-COO solvers (PCG and dense Schur, the sharded BA, GNSS priors) and the
-temporal window are not ported yet and raise.
+grid solver with observations from the FeatureBank or the COO list, over
+the covisibility window or the temporal one; `gather_window_problem_bank`
+gathers the COO problem that the visual-inertial BA solves.  The visual
+COO solvers (PCG and dense Schur), the sharded BA and GNSS priors are not
+ported yet and raise.
 
 Tie rules kept from JAX: `lax.top_k` and `jnp.argsort` keep the lower
 index first on ties, so the port sorts stably; `argmin` takes the first
@@ -25,7 +27,7 @@ from ..ops import cameras, lie, matching, triangulate
 from ..slam_map import feature_bank as fb
 from ..slam_map import state as mapstate
 from ..slam_map.state import _on, _row, _set_at, _set_drop, _set_drop_last
-from ..solver import ba_grid
+from ..solver import ba, ba_grid
 
 
 def _scale_factors(scale_factor: float, n_levels: int, device) -> torch.Tensor:
@@ -216,15 +218,21 @@ def _compact(mask: torch.Tensor, cap: int, score=None):
     return sel, sel_valid, inv
 
 
-def _covis_window(m: mapstate.MapState, center_kf, window: int, window_mode: str):
-    """The free BA window: the center KF, its top `window - 1` covisible
-    KFs and the temporal predecessor.  Returns (in_window (K,) bool,
-    prev, top_idx)."""
-    if window_mode != "covis":
-        raise NotImplementedError(
-            "the temporal BA window serves the inertial and GNSS paths, "
-            "queue 1 items 6 and 9")
+def _window(m: mapstate.MapState, center_kf, window: int, window_mode: str):
+    """The free BA window.  "covis": the center KF, its top `window - 1`
+    covisible KFs and the temporal predecessor; "temporal": the `window`
+    KFs up to the center (LocalInertialBA keeps the chain of preintegration
+    factors inside the free window, reference src/Optimizer.cc:2452-2460).
+    Returns (in_window (K,) bool, win_idx): the indices that the grid
+    bank's point budget projects into."""
     center = center_kf
+    if window_mode == "temporal":
+        K = m.kf_R.shape[0]
+        ids = torch.arange(K, device=m.kf_R.device)
+        in_window = (ids > center - window) & (ids <= center) & m.kf_valid
+        return in_window, torch.clamp(center - torch.arange(window, device=ids.device), 0, K - 1)
+    if window_mode != "covis":
+        raise ValueError(f"window_mode {window_mode!r}")
     prev, _, ids = _prev_kf(m, center)
     covis = mapstate.covisibility_weights(m, center)
     cscore = torch.where(m.kf_valid & (ids != center), covis, 0)
@@ -234,7 +242,8 @@ def _covis_window(m: mapstate.MapState, center_kf, window: int, window_mode: str
     in_window = _set_at(in_window, center, True)
     p0 = torch.clamp_min(prev, 0)
     in_window = _set_at(in_window, p0, _row(in_window, p0) | (prev >= 0))
-    return in_window & m.kf_valid, prev, top_idx
+    c = _on(center, torch.int64, ids.device)
+    return in_window & m.kf_valid, torch.cat([c[None], p0[None], top_idx])
 
 
 def _anchors(in_window, cam_sel, cam_sel_valid, min_anchors: int):
@@ -283,7 +292,7 @@ def gather_window_grid(m: mapstate.MapState, center_kf, window: int,
     P = m.pt_xyz.shape[0]
     dev = m.pt_xyz.device
     sf = _scale_factors(scale_factor, n_levels, dev)
-    in_window, _, _ = _covis_window(m, center_kf, window, window_mode)
+    in_window, _ = _window(m, center_kf, window, window_mode)
 
     obs_pt_c = torch.clamp(m.obs_pt, 0, P - 1).long()
     obs_kf_c = torch.clamp(m.obs_kf, 0, K - 1).long()
@@ -328,15 +337,13 @@ def gather_window_grid_bank(m: mapstate.MapState, bank: fb.FeatureBank, center_k
     P = m.pt_xyz.shape[0]
     dev = m.pt_xyz.device
     sf = _scale_factors(scale_factor, n_levels, dev)
-    in_window, prev, top_idx = _covis_window(m, center_kf, window, window_mode)
-    center = _on(center_kf, torch.int64, dev)
+    in_window, win_idx = _window(m, center_kf, window, window_mode)
 
     # point candidates: in-window observer count (one incidence matvec)
     live = mapstate.live_incidence(m).to(torch.float32)
     nobs_win = live @ in_window.to(torch.float32)
     # budget order: each point's smallest reprojection error over the
     # window KFs' bank rows, BIG where no row sees it
-    win_idx = torch.cat([center[None], torch.clamp_min(prev, 0)[None], top_idx])
     win_ok = in_window[win_idx]
     wpt = bank.kp_pt[win_idx]                                 # (W, N)
     wpt_c = torch.clamp(wpt, 0, P - 1).long()
@@ -377,6 +384,56 @@ def gather_window_grid_bank(m: mapstate.MapState, bank: fb.FeatureBank, center_k
     grid = _scatter_grid(cap_pts, cap_cams, gp, gk, ok, payload)
     prob = _grid_problem(m, in_window, cam_sel, cam_sel_valid, pt_sel,
                          pt_sel_valid, grid, min_anchors)
+    return prob, cam_sel, cam_sel_valid, pt_sel, prob.pt_valid
+
+
+def gather_window_problem_bank(m: mapstate.MapState, bank: fb.FeatureBank, center_kf,
+                               window: int, n_levels: int, scale_factor: float,
+                               cap_cams: int = 32, cap_pts: int = 8192, cap_obs: int = 32768,
+                               window_mode: str = "covis", min_anchors: int = 2):
+    """The window problem as COO observations from the selected cameras'
+    FeatureBank rows (the solvers that take an observation list, the
+    visual-inertial BA among them).  Points are budgeted by their in-window
+    observer count, in-window cameras come first and the best-connected
+    out-of-window observers fill the rest as fixed anchors; the rows are
+    compacted to `cap_obs`.  Returns (BAProblem, cam_sel, cam_sel_valid,
+    pt_sel, pt_valid)."""
+    P = m.pt_xyz.shape[0]
+    dev = m.pt_xyz.device
+    sf = _scale_factors(scale_factor, n_levels, dev)
+    in_window, _ = _window(m, center_kf, window, window_mode)
+
+    live = mapstate.live_incidence(m).to(torch.float32)
+    nobs_win = live @ in_window.to(torch.float32)
+    pt_sel, pt_sel_valid, pt_inv = _compact(nobs_win > 0, cap_pts, score=nobs_win)
+
+    sel_mask = _set_drop(torch.zeros(P, dtype=torch.float32, device=dev),
+                         torch.where(pt_sel_valid, pt_sel, P), 1.0)
+    cam_obs_sel = sel_mask @ live
+    cam_touched = ((cam_obs_sel > 0) | in_window) & m.kf_valid
+    cam_score = cam_obs_sel + torch.where(in_window, 1e6, 0.0)
+    cam_sel, cam_sel_valid, _ = _compact(cam_touched, cap_cams, score=cam_score)
+
+    # observation rows: the selected cameras' bank rows, compacted to cap_obs
+    C = cam_sel.shape[0]
+    kpt = bank.kp_pt[cam_sel]                                  # (C, N)
+    kpt_c = torch.clamp(kpt, 0, P - 1).long()
+    gp = pt_inv[kpt_c]
+    ok = (bank.valid[cam_sel] & (kpt >= 0) & m.pt_valid[kpt_c] & (gp >= 0) &
+          cam_sel_valid[:, None]).reshape(-1)
+    obs_sel, obs_sel_valid, _ = _compact(ok, cap_obs)
+    o_kf = torch.arange(C, device=dev)[:, None].expand(kpt.shape).reshape(-1)[obs_sel]
+    o_pt = gp.reshape(-1)[obs_sel]
+    inv_sigma2 = 1.0 / sf[_lv(bank.octave[cam_sel].reshape(-1)[obs_sel], n_levels)] ** 2
+    prob = ba.BAProblem(
+        R=m.kf_R[cam_sel], t=m.kf_t[cam_sel],
+        cam_fixed=_anchors(in_window, cam_sel, cam_sel_valid, min_anchors),
+        cam_valid=cam_sel_valid,
+        X=m.pt_xyz[pt_sel], pt_valid=pt_sel_valid & m.pt_valid[pt_sel],
+        obs_cam=o_kf.to(torch.int32), obs_pt=torch.clamp_min(o_pt, 0),
+        obs_uv=bank.xy[cam_sel].reshape(-1, 2)[obs_sel], obs_inv_sigma2=inv_sigma2,
+        obs_valid=obs_sel_valid & (o_pt >= 0),
+        obs_ur=bank.ur[cam_sel].reshape(-1)[obs_sel])
     return prob, cam_sel, cam_sel_valid, pt_sel, prob.pt_valid
 
 

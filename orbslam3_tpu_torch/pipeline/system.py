@@ -215,14 +215,17 @@ def local_view(cfg: SlamConfig, m: mapstate.MapState, center):
 
 
 def kf_step(cfg: SlamConfig, cam, m: mapstate.MapState, bank: fb.FeatureBank,
-            ff: FeatureFrame, kp_pt, R, t, ts, frame_id, kp_ur, center):
+            ff: FeatureFrame, kp_pt, R, t, ts, frame_id, kp_ur, center, ba=None):
     """The synchronous keyframe frame: insert + triangulate, point culling,
-    window BA and the tracking-view rebuild around `center`.  Returns
-    (map, bank, ki, kp_pt_new, n_new, view)."""
+    window BA and the tracking-view rebuild around `center`.  `ba(m,
+    center, bank)` takes the place of the visual window BA (the inertial
+    System's visual-inertial one); it is given the bank that holds the new
+    keyframe's rows, which its gather reads.  Returns (map, bank, ki,
+    kp_pt_new, n_new, view)."""
     m, bank, ki, kp_pt_new, n_new = insert_kf(cfg, cam, m, bank, ff, kp_pt,
                                               R, t, ts, frame_id, kp_ur)
     m = cull(m, frame_id)
-    m = local_ba(cfg, cam, m, center, bank)
+    m = local_ba(cfg, cam, m, center, bank) if ba is None else ba(m, center, bank)
     return m, bank, ki, kp_pt_new, n_new, local_view(cfg, m, center)
 
 
@@ -239,8 +242,9 @@ def post_ba_stages(cfg: SlamConfig, cam, m: mapstate.MapState,
     keyframe `ki` every `fuse_every_n_kf` keyframes, keyframe culling at
     ki > 6 and ki % 4 == 0, and slot compaction at ki % 8 == 0 above 85%
     of the point or observation capacity.  Returns (map, bank, kp_pt of
-    `ki`, view); the view is rebuilt around `ki` if a stage changed the
-    map.  With a `loop_closer` its keyframe database follows the map: a
+    `ki`, view, culled): the view is rebuilt around `ki` if a stage changed
+    the map, and `culled` is the index of the keyframe that culling removed
+    (None if none), for what the caller keeps per keyframe beside the map.  With a `loop_closer` its keyframe database follows the map: a
     culled keyframe is erased from it (reference KeyFrame::SetBadFlag ->
     KeyFrameDatabase::erase, src/KeyFrameDatabase.cc:66: a culled keyframe
     must never come back as a candidate with its frozen pose) and keyframe
@@ -248,6 +252,7 @@ def post_ba_stages(cfg: SlamConfig, cam, m: mapstate.MapState,
     only mode.  Loop detection and closure (queue 1 item 7) and the GNSS
     stage (item 9) are not ported yet and are left out."""
     dirty = False
+    culled = None
     # SearchInNeighbors (reference src/LocalMapping.cc:764), then
     # ComputeDistinctiveDescriptors on the touched points (:838-843)
     if cfg.fuse_every_n_kf and ki % cfg.fuse_every_n_kf == 0:
@@ -262,9 +267,10 @@ def post_ba_stages(cfg: SlamConfig, cam, m: mapstate.MapState,
     if cfg.kf_culling and ki > 6 and ki % 4 == 0:
         reds = torch.nonzero(fusion.redundancy_window(m, ki)).flatten().tolist()
         if reds:
-            m = fusion.cull_keyframe(m, reds[0])
+            culled = reds[0]
+            m = fusion.cull_keyframe(m, culled)
             if loop_closer is not None:
-                loop_closer.db = kdb.erase(loop_closer.db, reds[0])
+                loop_closer.db = kdb.erase(loop_closer.db, culled)
             dirty = True
     # slot reclamation near capacity
     if ki % 8 == 0:
@@ -278,7 +284,7 @@ def post_ba_stages(cfg: SlamConfig, cam, m: mapstate.MapState,
         loop_closer.add_keyframe(m, ki, ff)
     if dirty or view is None:
         view = local_view(cfg, m, ki)
-    return m, bank, kp_pt, view
+    return m, bank, kp_pt, view, culled
 
 
 def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -604,7 +610,7 @@ class System:
         ki = self.n_kf_host
         m, bank, _, kp_pt_new, _, view = kf_step(
             self.cfg, self.cam_params, self.map, self.bank, ff, tr.kp_pt, tr.R, tr.t,
-            ts, self.frame_id, kp_ur, ki)
+            ts, self.frame_id, kp_ur, ki, ba=self._window_ba())
         self.n_kf_host += 1
         self.last_kf_ts = ts
         self.last_kf_idx = ki
@@ -613,9 +619,24 @@ class System:
         self.R_prev, self.t_prev, R_cur, t_cur = kf_pose_refresh(
             m, ki, self.R_cur, self.t_cur, self.R_prev, self.t_prev)
         self._set_pose(R_cur, t_cur)
-        self.map, self.bank, _, self.view = post_ba_stages(
+        self.map, self.bank, _, self.view, culled = post_ba_stages(
             self.cfg, self.cam_params, m, bank, ki, ff, kp_pt_new, view,
             loop_closer=self.loop_closer)
+        if culled is not None:
+            self._cull_keyframe(culled)
+
+    def _window_ba(self):
+        """The keyframe step's window BA as `kf_step` takes it: None, the
+        visual grid BA.  The inertial System returns its visual-inertial BA
+        once the IMU is initialized."""
+        return None
+
+    def _cull_keyframe(self, kf_idx: int) -> None:
+        """Keyframe culling removed keyframe `kf_idx` from the map and the
+        keyframe database (`post_ba_stages`); this hook updates what a
+        System keeps per keyframe beside them.  The monocular System keeps
+        nothing there; the inertial System merges the preintegration chain
+        across the culled keyframe."""
 
     # ----------------------------------------------------------------- loss
     def _handle_tracking_loss(self, ff) -> bool:

@@ -3,7 +3,9 @@
 numpy in, numpy out; nothing here imports JAX.  A test fills these from
 `jax.device_get(x)._asdict()` so that both sides compute on the same map,
 view, feature frame, feature bank, match set, two-view result, keyframe
-database or codebook.  uint32 descriptor and codebook words cross as int32
+database, codebook, preintegration, factor stack or frame prior, and
+`set_inertial_state` gives an `InertialSystem` the inertial bookkeeping of
+another one.  uint32 descriptor and codebook words cross as int32
 bit patterns (`.view(np.int32)`), the port's descriptor format.
 """
 
@@ -14,9 +16,12 @@ import torch
 
 from ..features.extractor import FeatureFrame
 from ..geometry.twoview import TwoViewResult
+from ..ops.imu import Preintegrated
 from ..ops.matching import Matches
 from ..place.keyframe_db import KeyframeDB
 from ..place.vocab import codebook_tensor as codebook_from_numpy  # (V, 8) uint32 -> int32
+from ..solver.inertial import PreintFactor
+from ..solver.vi_pose_opt import VIPosePrior
 from .feature_bank import FeatureBank
 from .state import MapState, PointView
 
@@ -59,6 +64,48 @@ def twoview_from_numpy(fields: dict, device="cpu") -> TwoViewResult:
 def db_from_numpy(fields: dict, device="cpu") -> KeyframeDB:
     """A JAX `KeyframeDB`'s three arrays (tf, has_word, active) as the port's."""
     return _build(KeyframeDB, fields, device)
+
+
+def preint_from_numpy(fields: dict, device="cpu") -> Preintegrated:
+    return _build(Preintegrated, fields, device)
+
+
+def factor_from_numpy(fields: dict, device="cpu") -> PreintFactor:
+    return _build(PreintFactor, fields, device)
+
+
+def prior_from_numpy(fields: dict, device="cpu") -> VIPosePrior:
+    return _build(VIPosePrior, fields, device)
+
+
+# the inertial bookkeeping of an InertialSystem beside the base System's state
+INERTIAL_FLAGS = ("imu_initialized", "viba1_done", "viba2_done", "last_frame_ts", "kf_time0",
+                  "_map_updated")
+
+
+def set_inertial_state(sys_, state: dict) -> None:
+    """Give `sys_` (an `InertialSystem`) the inertial state in `state`:
+    the flags of INERTIAL_FLAGS; `imu_queue` and `kf_imu_buffer` as lists of
+    (t, gyro, acc); `bias`, `vel` arrays; `last_body` None or (Rwb, pwb);
+    `preints` a list of Preintegrated field dicts with `preint_kf_pairs` and
+    `preint_raw` (numpy (acc, gyr, dts) per factor); `frame_prior` None or
+    a VIPosePrior field dict; `frame_rows` None or packed rows."""
+    dev = sys_.device
+    for name in INERTIAL_FLAGS:
+        setattr(sys_, name, state[name])
+    sys_.imu_queue = list(state["imu_queue"])
+    sys_.kf_imu_buffer = list(state["kf_imu_buffer"])
+    sys_.bias = _tensor(state["bias"], dev)
+    sys_.vel = _tensor(state["vel"], dev)
+    lb = state["last_body"]
+    sys_.last_body = None if lb is None else (_tensor(lb[0], dev), _tensor(lb[1], dev))
+    sys_.preints = [preint_from_numpy(p, dev) for p in state["preints"]]
+    sys_.preint_kf_pairs = [tuple(int(k) for k in p) for p in state["preint_kf_pairs"]]
+    sys_.preint_raw = [tuple(np.array(a) for a in r) for r in state["preint_raw"]]
+    fp = state["frame_prior"]
+    sys_.frame_prior = None if fp is None else prior_from_numpy(fp, dev)
+    fr = state["frame_rows"]
+    sys_._frame_rows = None if fr is None else np.array(fr)
 
 
 def to_numpy(x):

@@ -25,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -124,6 +125,17 @@ def _on(val, dtype, device) -> torch.Tensor:
     if isinstance(val, torch.Tensor):
         return val.to(dtype=dtype, device=device)
     return torch.full((), val, dtype=dtype, device=device)
+
+
+def _upload(array, device) -> torch.Tensor:
+    """A host array (numpy or nested lists) on `device` without waiting for
+    the device's queue: on a card through pinned memory and an asynchronous
+    copy (a copy from pageable memory waits for all queued work)."""
+    t = torch.as_tensor(np.ascontiguousarray(array))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def _row(arr: torch.Tensor, i, dim: int = 0) -> torch.Tensor:

@@ -1,14 +1,39 @@
-"""Closed-form 3x3 blocks of the bundle adjustment solvers.
+"""The COO bundle adjustment problem and the closed-form 3x3 blocks of the
+bundle adjustment solvers.
 
-Counterpart of `_spd_inv3` and `_chol3` in `orbslam3_tpu/solver/ba.py`;
-the grid solver (`solver/ba_grid.py`) uses both on its point blocks.  The
-COO bundle adjustment with its PCG and dense Schur solves is not ported
-yet.
+Counterpart of `BAProblem`, `_spd_inv3` and `_chol3` in
+`orbslam3_tpu/solver/ba.py`.  The grid solver (`solver/ba_grid.py`) and the
+visual-inertial BA (`solver/vi_ba.py`) use the blocks on their points;
+`mapping.gather_window_problem_bank` fills a `BAProblem` for the
+visual-inertial BA.  The visual COO solvers (PCG and dense Schur) are not
+ported yet.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
+
+
+class BAProblem(NamedTuple):
+    """Fixed-capacity visual BA problem with COO observations.  Stereo
+    observations carry obs_ur >= 0; the optional per-camera position priors
+    are the GNSS-constrained BA's."""
+    R: torch.Tensor                 # (K, 3, 3) R_cw
+    t: torch.Tensor                 # (K, 3)
+    cam_fixed: torch.Tensor         # (K,) bool: pose held constant
+    cam_valid: torch.Tensor         # (K,) bool
+    X: torch.Tensor                 # (P, 3)
+    pt_valid: torch.Tensor          # (P,) bool
+    obs_cam: torch.Tensor           # (O,) int
+    obs_pt: torch.Tensor            # (O,) int
+    obs_uv: torch.Tensor            # (O, 2)
+    obs_inv_sigma2: torch.Tensor    # (O,)
+    obs_valid: torch.Tensor         # (O,) bool
+    obs_ur: Optional[torch.Tensor] = None    # (O,) stereo right-u; -1 = mono
+    prior_pos: Optional[torch.Tensor] = None  # (K, 3) prior camera centre
+    prior_w: Optional[torch.Tensor] = None    # (K,) information; 0 = none
 
 
 def _spd_inv3(A: torch.Tensor) -> torch.Tensor:

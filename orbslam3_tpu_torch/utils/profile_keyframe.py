@@ -1,6 +1,7 @@
 """Profile the seeded keyframe drive's steps under torch.profiler on one GPU.
 
     python -m orbslam3_tpu_torch.utils.profile_keyframe [--frames 12] [--out DIR]
+    python -m orbslam3_tpu_torch.utils.profile_keyframe --inertial [--out DIR]
 
 Seeds the default-size scene (`seeded_scene.SceneConfig()`), runs the drive
 once to warm up, then profiles it again over `--frames` tracked frames
@@ -12,6 +13,17 @@ per keyframe step, each range's host milliseconds, device milliseconds
 (the kernels launched inside it) and kernel launches, then the device's
 busy share over the profiled drive, and writes the Chrome trace to
 `DIR/keyframe_trace.json`.
+
+`--inertial` drives the mono-inertial System on `imu_scene`'s 128 frames
+instead and profiles one frame of each kind (`imu_scene.frame_kind`: the
+tracked frame before the IMU initialization, the keyframe frame, the
+IMU-init frame, the LastKeyFrame and LastFrame tracked frames, the inertial
+keyframe frame), with the inertial stages as ranges: `preintegrate`,
+`track_local_map`, `vi_pose_optimization` (LastKeyFrame),
+`vi_pose_optimization_last_frame`, `solve_psd` / `solve_psd_blocked`,
+`insert_kf`, `local_ba`, `vi_bundle_adjust`, `inertial_only_init`,
+`post_ba_stages`.  Prints the range table per kind and writes it to
+`DIR/inertial_profile.json`.
 """
 
 from __future__ import annotations
@@ -79,6 +91,47 @@ def range_table(trace: dict, names) -> tuple[dict, float, int]:
         r[3] += sum(d["cat"] == "kernel" for d in owned)
     busy = sum(e["dur"] for e in dev.values()) / 1e3
     return rows, busy, sum(e["cat"] == "kernel" for e in dev.values())
+
+
+class DeviceWork:
+    """A context manager that profiles what runs inside it on the current
+    CUDA device: afterwards `launches` (kernels), `device_ms` (kernels,
+    copies and sets) and, with `ranges`, the range table of those names
+    (CPU and CUDA activities; without ranges CUDA alone, a smaller trace).
+    The last one entered is `DeviceWork.last`."""
+    last = None
+
+    def __init__(self, kind=None, ranges=()):
+        self.kind, self.ranges, self.frame = kind, tuple(ranges), None
+        self.launches = self.device_ms = self.table = None
+
+    def __enter__(self):
+        import torch
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        if self.ranges:
+            acts.append(torch.profiler.ProfilerActivity.CPU)
+        self._prof = torch.profiler.profile(activities=acts)
+        self._prof.__enter__()
+        DeviceWork.last = self
+        return self
+
+    def __exit__(self, *exc):
+        import tempfile
+        import torch
+        torch.cuda.synchronize()
+        self._prof.__exit__(*exc)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            self._prof.export_chrome_trace(path)
+            with open(path) as f:
+                trace = json.load(f)
+        work = [e for e in trace["traceEvents"] if e.get("cat") in _DEVICE_CATS]
+        self.launches = sum(e["cat"] == "kernel" for e in work)
+        self.device_ms = sum(e["dur"] for e in work) / 1e3
+        if self.ranges:
+            self.table = range_table(trace, self.ranges)[0]
+        self._prof = None
+        return False
 
 
 def kernel_durations(fn, names, runs: int = 50) -> tuple[dict, int]:
@@ -160,6 +213,66 @@ def profile(cfg, dev, out_dir: str, card: str) -> dict:
     return result
 
 
+def _instrument_inertial():
+    """Wrap the inertial stages in profiler ranges (module attributes)."""
+    from ..ops import imu, smallsolve
+    from ..pipeline import system, tracking
+    from ..solver import inertial, vi_ba, vi_pose_opt
+    spec = ((imu, "preintegrate"), (tracking, "track_local_map"),
+            (vi_pose_opt, "vi_pose_optimization"),
+            (vi_pose_opt, "vi_pose_optimization_last_frame"), (smallsolve, "solve_psd"),
+            (smallsolve, "solve_psd_blocked"), (system, "insert_kf"), (system, "local_ba"),
+            (vi_ba, "vi_bundle_adjust"), (inertial, "inertial_only_init"),
+            (system, "post_ba_stages"))
+    for mod, attr in spec:
+        setattr(mod, attr, _ranged(attr, getattr(mod, attr)))
+    return tuple(attr for _, attr in spec)
+
+
+def profile_inertial(dev, out_dir: str, card: str) -> dict:
+    """One profiled frame of each kind of `imu_scene`'s inertial drive, with
+    the inertial stages' range table."""
+    import torch
+    from . import imu_scene as scene
+
+    names = _instrument_inertial()
+    cfg = scene.InertialScene()
+    frames = scene.render_frames(cfg)
+    done = {}
+
+    def wrap(i, sys_):
+        kind = scene.expected_kind(sys_, i)
+        if kind is None or kind in done or i < 10:
+            return None
+        return DeviceWork(kind, ranges=names)
+
+    def on_frame(i, sys_, kind):
+        w = DeviceWork.last
+        DeviceWork.last = None
+        if w is not None and w.kind == kind:
+            w.frame = i
+            done[kind] = w
+
+    sys_, d = scene.drive(cfg, frames, dev, sync=torch.cuda.synchronize, wrap=wrap,
+                          on_frame=on_frame)
+    print(f"card: {card}")
+    result = {"card": card, "kinds": {}}
+    for kind, w in done.items():
+        print(f"{kind} (frame {w.frame}, {d.seconds[w.frame] * 1e3:.1f} ms under the "
+              f"profiler): {w.launches} kernels, {w.device_ms:.2f} ms of device time")
+        print(f"  {'range':34s} {'calls':>5s} {'host ms':>10s} {'device ms':>10s} {'launches':>9s}")
+        for name in names:
+            if name in w.table:
+                c, host, devms, n = w.table[name]
+                print(f"  {name:34s} {c:5d} {host:10.2f} {devms:10.2f} {n:9d}")
+        result["kinds"][kind] = dict(frame=w.frame, launches=w.launches, device_ms=w.device_ms,
+                                     host_ms=d.seconds[w.frame] * 1e3, ranges=w.table)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "inertial_profile.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    return result
+
+
 def main() -> int:
     import torch
     from . import seeded_scene as scene
@@ -167,12 +280,16 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=12)
     ap.add_argument("--out", default="profile_out")
+    ap.add_argument("--inertial", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
+    if args.inertial:
+        profile_inertial(torch.device("cuda", 0), args.out, card)
+        return 0
     cfg = dataclasses.replace(scene.SceneConfig(),
                               track_frames=tuple(range(19, 19 + args.frames)))
     profile(cfg, torch.device("cuda", 0), args.out, card)

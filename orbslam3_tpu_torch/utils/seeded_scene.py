@@ -257,7 +257,7 @@ def track_with_keyframes(cfg: SceneConfig, m, bank, view, frames: dict, device):
             scfg, cam, m, bank, ff, kp_pt, R, t, fi / 10.0, fi, kp_ur, ki)
         R_prev, t_prev, R_cur, t_cur = system.kf_pose_refresh(
             m, ki, R_cur, t_cur, R_prev, t_prev)
-        m, bank, _, view = system.post_ba_stages(scfg, cam, m, bank, ki, ff,
+        m, bank, _, view, _ = system.post_ba_stages(scfg, cam, m, bank, ki, ff,
                                                  kp_new, view)
         sync()
         dt = time.perf_counter() - t0

@@ -1,6 +1,7 @@
 """Count the blocking host reads of the `System`'s frames on one GPU.
 
     python -m orbslam3_tpu_torch.utils.sync_census [--frames 40]
+    python -m orbslam3_tpu_torch.utils.sync_census --inertial [--frames 128]
 
 Feeds the first `--frames` frames of `seeded_scene`'s default scene to a
 `System` on the card, then 2 textureless frames (the track is lost) and
@@ -13,12 +14,20 @@ the initialising frame, tracked frame, keyframe frame, lost frame: local-map
 tracking failed and the database had no candidate, relocalization attempt: a
 batch of candidates was evaluated), and where in the package each comes
 from.
+
+`--inertial` counts the mono-inertial System's frames instead, on
+`imu_scene`'s drive (its first `--frames` frames, 128 by default), grouped
+by `imu_scene.frame_kind`: before the IMU initialization the tracked frame
+and the keyframe frame as above, then the IMU-init frame (a keyframe frame
+that ran an IMU stage), the LastKeyFrame and LastFrame tracked frames and
+the inertial keyframe frame (VI window BA).
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import subprocess
 import traceback
@@ -55,22 +64,9 @@ def census(cfg, frames: dict, dev) -> dict:
         ts += 0.1
         feed.append((img, ts))
 
-    def note(message, category, filename, lineno, file=None, line=None):
-        if "synchroniz" not in str(message):
-            return
-        site = next((f for f in reversed(traceback.extract_stack()[:-1])
-                     if "orbslam3_tpu_torch" in f.filename and "sync_census" not in f.filename),
-                    None)
-        found.append("?" if site is None else
-                     f"{site.filename.split('orbslam3_tpu_torch/')[-1]}:{site.lineno} {site.name}")
-
-    torch.cuda.set_sync_debug_mode("warn")
-    showwarning = warnings.showwarning
-    warnings.showwarning = note
     relocalization._reloc_batch = counted_batch
     try:
-        with warnings.catch_warnings():
-            warnings.simplefilter("always")
+        with _sync_warnings(found):
             for img, ts in feed:
                 was, n_kf = sys_.state, sys_.n_kf_host
                 found.clear()
@@ -91,8 +87,62 @@ def census(cfg, frames: dict, dev) -> dict:
                 sites.update(found)
     finally:
         relocalization._reloc_batch = run_batch
+    return kinds
+
+
+@contextlib.contextmanager
+def _sync_warnings(found: list):
+    """Within: every operation that makes the host wait for the device
+    appends its call site in the package (`file:line function`) to
+    `found`."""
+    import torch
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        site = next((f for f in reversed(traceback.extract_stack()[:-1])
+                     if "orbslam3_tpu_torch" in f.filename and "sync_census" not in f.filename),
+                    None)
+        found.append("?" if site is None else
+                     f"{site.filename.split('orbslam3_tpu_torch/')[-1]}:{site.lineno} {site.name}")
+
+    torch.cuda.set_sync_debug_mode("warn")
+    showwarning = warnings.showwarning
+    warnings.showwarning = note
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            yield
+    finally:
         warnings.showwarning = showwarning
         torch.cuda.set_sync_debug_mode("default")
+
+
+def inertial_census(dev, n_frames: int) -> dict:
+    """{frame kind: (frames of that kind, Counter of sites -> reads)} over
+    the first n_frames frames of `imu_scene`'s mono-inertial drive."""
+    from . import imu_scene as scene
+
+    cfg = scene.InertialScene()
+    frames = scene.render_frames(cfg)
+    kinds: dict = {}
+    found: list = []
+
+    class Frame:
+        def __enter__(self):
+            found.clear()
+
+        def __exit__(self, *exc):
+            return False
+
+    def on_frame(i, sys_, kind):
+        n, sites = kinds.setdefault(kind, [0, collections.Counter()])
+        kinds[kind][0] = n + 1
+        sites.update(found)
+
+    with _sync_warnings(found):
+        scene.drive(cfg, frames, dev, n_frames=n_frames, wrap=lambda i, s: Frame(),
+                    on_frame=on_frame)
     return kinds
 
 
@@ -101,16 +151,21 @@ def main() -> int:
     from . import seeded_scene as scene
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--frames", type=int, default=40)
+    ap.add_argument("--frames", type=int, default=None)
+    ap.add_argument("--inertial", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
-    cfg = dataclasses.replace(scene.SceneConfig(), seed_frames=(),
-                              track_frames=tuple(range(args.frames)))
-    kinds = census(cfg, scene.render_frames(cfg), torch.device("cuda", 0))
+    dev = torch.device("cuda", 0)
+    if args.inertial:
+        kinds = inertial_census(dev, args.frames or 128)
+    else:
+        cfg = dataclasses.replace(scene.SceneConfig(), seed_frames=(),
+                                  track_frames=tuple(range(args.frames or 40)))
+        kinds = census(cfg, scene.render_frames(cfg), dev)
     print(f"card: {card}")
     for kind, (n, sites) in kinds.items():
         print(f"{kind}: {n} frames, {sum(sites.values()) / n:.2f} blocking reads per frame")

@@ -247,3 +247,70 @@ def test_system_relocalizes_on_the_card(dev):
     d = ss.drive_relocalization(sys_, cfg, tuple(range(f0 + 3, f0 + 9)), None)
     assert ss.check_reloc_gates(sys_, d, 0) == []
     assert sys_.R_cur.device == dev
+
+
+def _vi_problem(dev, K=6, n_pts=120, seed=0):
+    """A numpy-made visual-inertial window: keyframes 0.4 s apart on a
+    curved path, 200 Hz preintegrations between them (the port's own, on the
+    CPU), points in front seen by every keyframe with 0.3 px of noise,
+    keyframe 0 fixed, the rest perturbed."""
+    from orbslam3_tpu_torch.ops import imu, lie
+    from orbslam3_tpu_torch.solver import inertial, vi_ba
+    rng = np.random.default_rng(seed)
+    g = np.array([0.0, 0.0, -9.81])
+    pos = lambda t: np.array([2.0 * np.sin(0.3 * t), np.sin(0.5 * t), 0.5 * np.sin(0.7 * t)])
+    acc = lambda t: -np.array([2.0 * 0.09 * np.sin(0.3 * t), 0.25 * np.sin(0.5 * t),
+                               0.5 * 0.49 * np.sin(0.7 * t)])
+    vel = lambda t: np.array([0.6 * np.cos(0.3 * t), 0.5 * np.cos(0.5 * t), 0.35 * np.cos(0.7 * t)])
+    w = np.array([0.05, 0.3, 0.1])
+    rot = lambda t: lie.exp_so3(torch.tensor(w * t, dtype=torch.float32)).numpy()
+    calib = imu.ImuCalib.create(1.7e-4, 2e-3, 1.9e-5, 3e-3, 200.0)
+    pre = []
+    for k in range(K - 1):
+        ts = k * 0.4 + (np.arange(80) + 0.5) * 0.005
+        a = np.stack([rot(t).T @ (acc(t) - g) for t in ts]).astype(np.float32)
+        pre.append(imu.preintegrate(torch.from_numpy(a), torch.from_numpy(np.tile(w, (80, 1)).astype(np.float32)),
+                                    torch.full((80,), 0.005), torch.ones(80, dtype=torch.bool), calib,
+                                    n_valid=80))
+    f = inertial.stack_preints_device(pre, list(range(K - 1)), list(range(1, K)))
+    Rs = np.stack([rot(0.4 * k) for k in range(K)]).astype(np.float32)
+    ps = np.stack([pos(0.4 * k) for k in range(K)]).astype(np.float32)
+    vs = np.stack([vel(0.4 * k) for k in range(K)]).astype(np.float32)
+    X = np.stack([rng.uniform(-4, 6, n_pts), rng.uniform(-3, 3, n_pts), rng.uniform(6, 14, n_pts)],
+                 1).astype(np.float32)
+    K4 = np.array([458.654, 457.296, 367.215, 248.375], np.float32)
+    Xb = np.einsum("kji,kpj->kpi", Rs, X[None] - ps[:, None])
+    uv = K4[:2] * Xb[..., :2] / Xb[..., 2:] + K4[2:] + rng.normal(0, 0.3, (K, n_pts, 2))
+    d = rng.normal(0, 0.01, (K, 15)).astype(np.float32)
+    d[0] = 0.0
+    d[:, 9:] = 0.0
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    Rp, pp, vp, bp = vi_ba.apply_delta(t(Rs), t(ps), t(vs), torch.zeros(K, 6), t(d))
+    prob = vi_ba.VIProblem(
+        Rwb=Rp, pwb=pp, vel=vp, bias=bp, cam_fixed=torch.arange(K) == 0,
+        cam_valid=torch.ones(K, dtype=torch.bool),
+        X=t(X + rng.normal(0, 0.03, X.shape)), pt_valid=torch.ones(n_pts, dtype=torch.bool),
+        obs_cam=torch.arange(K).repeat_interleave(n_pts), obs_pt=torch.arange(n_pts).repeat(K),
+        obs_uv=t(uv.reshape(-1, 2)), obs_inv_sigma2=torch.ones(K * n_pts),
+        obs_valid=torch.ones(K * n_pts, dtype=torch.bool), factors=f,
+        gravity=torch.tensor(g, dtype=torch.float32), Rcb=torch.eye(3), tcb=torch.zeros(3))
+    mv = lambda x: x.to(dev) if isinstance(x, torch.Tensor) else type(x)(*(mv(y) for y in x))
+    return prob, mv(prob), torch.from_numpy(K4)
+
+
+def test_vi_bundle_adjust_on_the_card_matches_the_cpu(dev):
+    """The dense VI window BA (what the inertial System's keyframe step runs)
+    and its matrix-free twin on the card against the CPU on the same
+    problem: states within 1e-4, points within 1e-3 relative, after 4 LM
+    steps; the dense product stays float32 (no TF32)."""
+    from orbslam3_tpu_torch.solver import vi_ba
+    prob, prob_d, K4 = _vi_problem(dev)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    for schur in ("dense", "pcg"):
+        ref = vi_ba.vi_bundle_adjust(prob, "pinhole", K4, iterations=4, schur=schur)
+        got = vi_ba.vi_bundle_adjust(prob_d, "pinhole", K4.to(dev), iterations=4, schur=schur)
+        for a, b, name in zip(got[:4], ref[:4], ("Rwb", "pwb", "vel", "bias")):
+            assert a.device == dev
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4, err_msg=name)
+        rel = (got.X.cpu() - ref.X).abs().max() / ref.X.abs().max()
+        assert float(rel) < 1e-3

@@ -167,9 +167,10 @@ def test_pose_refresh_and_post_ba_stages_match_jax(first_step):
                                _t(pre["R_prev"]), _t(pre["t_prev"]))
     for g, r in zip(got, refresh):
         np.testing.assert_allclose(g.numpy(), _np(r), rtol=0, atol=1e-6)
-    m3, bank3, kp3, view3 = tsys.post_ba_stages(ss.slam_config(cfg), cam, m2, bank2,
+    m3, bank3, kp3, view3, culled = tsys.post_ba_stages(ss.slam_config(cfg), cam, m2, bank2,
                                                 pre["ki"], ff, _t(ref[3]), view2)
     m_r, bank_r, kp_r, view_r = post
+    assert culled is None                       # keyframe culling starts past keyframe 6
     np.testing.assert_array_equal(kp3.numpy(), _np(kp_r))
     assert (kp3 >= 0).sum() > (_t(ref[3]) >= 0).sum()          # fusion bound more
     np.testing.assert_array_equal(bank3.kp_pt.numpy(), _np(bank_r.kp_pt))

@@ -461,7 +461,7 @@ def test_culled_keyframe_is_erased_from_the_database(booted, monkeypatch):
     ff = convert.frame_from_numpy(revisit[0])
     kp_pt = torch.full((ff.xy.shape[0],), -1, dtype=torch.int32)
     cfg = dataclasses.replace(tsys.cfg, fuse_every_n_kf=0)
-    m, bank, _, _ = tsystem.post_ba_stages(cfg, tsys.cam_params, tsys.map, tsys.bank, ki, ff,
+    m, bank, _, _, _ = tsystem.post_ba_stages(cfg, tsys.cam_params, tsys.map, tsys.bank, ki, ff,
                                            kp_pt, None, loop_closer=tsys.loop_closer)
     db = tsys.loop_closer.db
     assert not bool(m.kf_valid[gone]) and not bool(db.active[gone])

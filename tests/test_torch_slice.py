@@ -76,11 +76,15 @@ for name in names:
     importlib.import_module(name)
 for name in ("geometry.twoview", "slam_map.atlas", "utils.align", "pipeline.system",
              "place.vocab", "place.keyframe_db", "geometry.mlpnp", "pipeline.relocalization",
-             "pipeline.loop_closing"):
+             "pipeline.loop_closing", "ops.imu", "solver.inertial", "solver.vi_ba",
+             "solver.vi_pose_opt", "pipeline.inertial_system", "utils.imu_scene"):
     assert "orbslam3_tpu_torch." + name in names, name
 from orbslam3_tpu_torch.pipeline.system import SlamConfig, System
 sys_ = System(SlamConfig(), device="cpu")
 assert sys_.state == 0 and sys_.loop_closer.db.tf.shape == (256, 65536)
+from orbslam3_tpu_torch.pipeline.inertial_system import InertialConfig, InertialSystem
+isys = InertialSystem(SlamConfig(enable_relocalization=False), InertialConfig(), device="cpu")
+assert isys.state == 0 and not isys.imu_initialized
 import chip_smoke
 assert "jax" not in [m.split(".")[0] for m, v in sys.modules.items() if v is not None]
 print(len(names))
@@ -92,7 +96,7 @@ def test_port_and_smoke_import_without_jax():
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": REPO})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 43   # every module of the package
+    assert int(out.stdout.split()[-1]) >= 49   # every module of the package
 
 
 def _smoke(cwd):

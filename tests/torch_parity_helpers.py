@@ -243,3 +243,49 @@ def jax_reloc_samples(m, bank, ff, cand_idx, cand_ok, key, scale_factor, n_level
 def copy_keyframe_db(jsys, tsys) -> None:
     """Copy a JAX `System`'s keyframe database into a port `System`'s."""
     tsys.loop_closer.db = convert.db_from_numpy(fields(jsys.loop_closer.db), tsys.device)
+
+
+def _host(x):
+    return None if x is None else np.array(jax.device_get(x))
+
+
+def inertial_snapshot(jsys) -> dict:
+    """A JAX `InertialSystem`'s state as numpy: the base System's tracker
+    state (map, bank, view, poses, keyframe bookkeeping) and the inertial
+    bookkeeping that `convert.set_inertial_state` takes, copied at once so
+    that the JAX system can run on."""
+    snap = dict(
+        map=fields(jsys.map), bank=None if jsys.bank is None else fields(jsys.bank),
+        view=None if jsys.view is None else fields(jsys.view),
+        **{n: _host(getattr(jsys, n)) for n in ("R_cur", "t_cur", "R_prev", "t_prev")},
+        **{n: getattr(jsys, n) for n in (
+            "has_velocity", "last_kf_id", "last_kf_idx", "n_kf_host", "last_kf_ts",
+            "inliers_at_last_kf", "frame_id", "state", "lost_frames", "_prev_frame_ts",
+            "localization_only") + convert.INERTIAL_FLAGS},
+        trajectory=[(ts, np.array(R), np.array(t)) for ts, R, t in jsys.trajectory],
+        imu_queue=list(jsys.imu_queue), kf_imu_buffer=list(jsys.kf_imu_buffer),
+        bias=_host(jsys.bias), vel=_host(jsys.vel),
+        last_body=None if jsys.last_body is None else tuple(_host(x) for x in jsys.last_body),
+        preints=[fields(p) for p in jsys.preints],
+        preint_kf_pairs=list(jsys.preint_kf_pairs),
+        preint_raw=[tuple(np.array(a) for a in r) for r in jsys.preint_raw],
+        frame_prior=None if jsys.frame_prior is None else fields(jsys.frame_prior),
+        frame_rows=None if jsys._frame_rows is None else np.array(jsys._frame_rows))
+    return snap
+
+
+def load_inertial_snapshot(snap: dict, tsys) -> None:
+    """Give a port `InertialSystem` the state of an `inertial_snapshot`."""
+    dev = tsys.device
+    tsys.map = convert.map_from_numpy(snap["map"], dev)
+    tsys.bank = None if snap["bank"] is None else convert.bank_from_numpy(snap["bank"], dev)
+    tsys.view = None if snap["view"] is None else convert.view_from_numpy(snap["view"], dev)
+    for name in ("R_cur", "t_cur", "R_prev", "t_prev"):
+        setattr(tsys, name, torch.from_numpy(np.array(snap[name], np.float32)).to(dev))
+    tsys._pose_host = None
+    for name in ("has_velocity", "last_kf_id", "last_kf_idx", "n_kf_host", "last_kf_ts",
+                 "inliers_at_last_kf", "frame_id", "state", "lost_frames", "_prev_frame_ts",
+                 "localization_only"):
+        setattr(tsys, name, snap[name])
+    tsys.trajectory = [(ts, np.array(R), np.array(t)) for ts, R, t in snap["trajectory"]]
+    convert.set_inertial_state(tsys, snap)
