@@ -4,7 +4,8 @@
 
 Drives the port's main paths, the per-frame monocular step, the synchronous
 keyframe step, the whole `System` from raw frames, its recovery of a lost
-track by relocalization and the mono-inertial `System`, at the JAX package's default monocular configuration (480x752 image, 1200 ORB features over 8
+track by relocalization, the mono-inertial `System`, and loop closing with
+the asynchronous keyframe chain, at the JAX package's default monocular configuration (480x752 image, 1200 ORB features over 8
 levels, map capacity 256 keyframes / 24576 points / 196608 observations, a
 local view of 8192 points over 12 keyframes; window BA caps 16 / 4096 /
 12288, 6 LM steps over an 8-keyframe window, 4 triangulation neighbours, 768
@@ -101,12 +102,36 @@ new points at most):
      the IMU-init frame split into `inertial_only_init`, reintegration and
      FullInertialBA, the VI window BA, medians per frame kind on the host
      clock, and launches and device milliseconds of one profiled frame of
-     each kind (torch.profiler's kernel records).
+     each kind (torch.profiler's kernel records);
+  9. loop closing: (a) phase 6's System and frames again with
+     `async_mapping=True, enable_loop_closing=True`: phase 6's gates,
+     `detect` at every inserted keyframe, no loop closed (this path never
+     revisits), every keyframe's pending chain merged (at a poll or forced),
+     nothing pending after `shutdown()`, map, bank, view and database on the
+     card, `orb_describe`'s counter equal to the 78 frames; tracked and
+     keyframe frame medians beside phase 6's.  (b) `utils/loop_scene`'s
+     drifted revisit at the default capacity with 1200-keypoint frames:
+     `LoopCloser.try_close` must close it (one closure, the revisit's centre
+     within 0.15 of the origin, its duplicates within 0.2 of the originals,
+     loop edge (revisit, 0) persisted), a CPU copy with the same Sim3 samples
+     must close the same (winner, matches, inliers; poses within 1e-3), and
+     the posted GBA, run on the side stream, is merged by a forced merge
+     (centre still within 0.15, every point finite) and held to the same
+     GBA run on the CPU from its inputs in what a GBA determines: every
+     observation's projection within 0.02 px, points within 1e-4 of the
+     map's extent, keyframe 0's and the revisit's poses within 1e-4, the
+     same cull verdicts (each exploring keyframe sees only its own points
+     and is free to move with them); the CPU copy's own GBA is merged too
+     (centre within 0.15).  Then `detect`,
+     `solve_sim3`, `optimize_pose_graph` (dense, 256 vertices) and `gba`
+     (the capacity-wide PCG, 8 LM steps) are timed alone: CUDA events, and
+     kernels and device time per call from torch.profiler's kernel records.
 
 Each phase prints one line (phase 6 three more before it, phase 7 four more
 after it: kernels per call and device time of `add_keyframe` and of the two
 halves of an attempt, from torch.profiler's kernel records; phase 8 one per
-frame kind after it); the kernels' JSON
+frame kind after it; phase 9 one per part, one per timed stage and its
+total); the kernels' JSON
 line and the card's line precede the last line, `{"ok": true, "device":
 {...}}`.  Any failure raises and exits non-zero before it.
 """
@@ -489,6 +514,226 @@ def print_inertial(ip: dict) -> None:
               f"{k['profiled_frame']} profiled: {la} kernels, {dm} of device time", flush=True)
 
 
+def async_loop_phase(scfg, sframes, dev) -> dict:
+    """Phase 9a on device `dev`: phase 6's System with async mapping and
+    loop closing on, fed phase 6's frames; raises on a failed gate.  Returns
+    the part's numbers."""
+    from orbslam3_tpu_torch.pipeline import loop_closing
+    from orbslam3_tpu_torch.utils import seeded_scene as scene
+
+    out = {}
+    detects = []
+    detect = loop_closing.LoopCloser.detect
+
+    def counted_detect(self, m, kf_idx, ff):
+        detects.append(kf_idx)
+        return detect(self, m, kf_idx, ff)
+
+    loop_closing.LoopCloser.detect = counted_detect
+    t0 = time.perf_counter()
+    try:
+        sys_, d = scene.drive_system(scfg, sframes, dev, async_mapping=True,
+                                     enable_loop_closing=True)
+        counts_at_end = dict(sys_.chain_counts)
+        pending_at_end = sys_._pending is not None
+        sys_.shutdown()
+    finally:
+        loop_closing.LoopCloser.detect = detect
+    out["a_s"] = time.perf_counter() - t0
+    bad, st = scene.check_system_gates(sys_, d)
+    c = sys_.chain_counts
+    n_ins = sys_.n_kf_host - 2
+    if sorted(detects) != list(range(2, sys_.n_kf_host)):
+        bad.append(f"detect ran at keyframes {detects}, {n_ins} were inserted")
+    if sys_.loop_closer.n_loops_closed:
+        bad.append(f"{sys_.loop_closer.n_loops_closed} false loop closures")
+    if c["posted kf"] != n_ins or c["merged kf at a poll"] + c["merged kf forced"] != n_ins:
+        bad.append(f"chains {dict(c)} for {n_ins} keyframes")
+    if sys_._pending is not None:
+        bad.append("a chain pending after shutdown")
+    for name, tensor in (("map", sys_.map.pt_xyz), ("bank", sys_.bank.xy),
+                         ("view", sys_.view.xyz), ("database", sys_.loop_closer.db.tf)):
+        if tensor.device.type != "cuda":
+            bad.append(f"the {name} is on {tensor.device}")
+    if bad:
+        _fail("async mapping with loop closing: " + "; ".join(bad))
+    out.update(a_stats=st, chains=dict(c), chains_before_shutdown=counts_at_end,
+               pending_at_end=pending_at_end, n_detect=len(detects))
+    return out
+
+
+def closure_phase(dev) -> dict:
+    """Phase 9b: a closure at the default capacity on `loop_scene`'s
+    drifted revisit, on the card and on a CPU copy with the same Sim3
+    samples, then its parts timed alone; raises on a failed gate.  Returns
+    the part's numbers."""
+    import numpy as np
+    import torch
+    from orbslam3_tpu_torch.geometry import sim3solver
+    from orbslam3_tpu_torch.pipeline import system
+    from orbslam3_tpu_torch.solver import pose_graph
+    from orbslam3_tpu_torch.utils import loop_scene, profile_keyframe
+
+    out = {}
+    seen = {}
+    solve, optimize = sim3solver.solve_sim3, pose_graph.optimize_pose_graph
+
+    def spy(name, fn):
+        def wrapper(*a, **kw):
+            seen.setdefault(name, (a, kw))
+            return fn(*a, **kw)
+        return wrapper
+
+    def closure(device):
+        cfg = system.SlamConfig(cam_params=loop_scene.K4, image_hw=(480, 752),
+                                enable_relocalization=False)
+        s_ = system.System(cfg, device=device)
+        rv = loop_scene.build(s_, n_kp=1200)
+        lc = loop_scene.loop_closer(s_, rv.kr)
+        before = (s_.map, s_.bank)
+        sync = torch.cuda.synchronize if s_.device.type == "cuda" else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        if not lc.try_close(s_, rv.ff, rv.kr, idx_fn=loop_scene.fixed_samples):
+            _fail(f"the loop scene did not close on {device}")
+        sync()
+        return s_, rv, lc, before, (time.perf_counter() - t0) * 1e3
+
+    sim3solver.solve_sim3 = spy("sim3", solve)
+    pose_graph.optimize_pose_graph = spy("pose_graph", optimize)
+    try:
+        g, rv, lc, before, close_ms = closure(dev)
+    finally:
+        sim3solver.solve_sim3, pose_graph.optimize_pose_graph = solve, optimize
+    c, _, lc_c, _, cpu_ms = closure("cpu")
+    m, kr = g.map, rv.kr
+    centre = float(torch.linalg.norm(-m.kf_R[kr].T @ m.kf_t[kr]))
+    dup = float(np.linalg.norm(m.pt_xyz[rv.pt_dup.long()].cpu().numpy() - rv.X0[:rv.pt_dup.shape[0]],
+                               axis=1).mean())
+    bad = []
+    if lc.n_loops_closed != 1 or centre >= 0.15 or dup >= 0.2:
+        bad.append(f"{lc.n_loops_closed} closures, centre {centre}, duplicates {dup}")
+    if int(m.n_loop) != 1 or (int(m.loop_i[0]), int(m.loop_j[0])) != (kr, 0):
+        bad.append(f"loop edges {int(m.n_loop)}: {m.loop_i[:1].tolist()}, {m.loop_j[:1].tolist()}")
+    if lc.last_closure != lc_c.last_closure:
+        bad.append(f"the card closed {lc.last_closure}, the CPU {lc_c.last_closure}")
+    nk = g.n_kf_host
+    pose_diff = max(float((m.kf_R[:nk].cpu() - c.map.kf_R[:nk]).abs().max()),
+                    float((m.kf_t[:nk].cpu() - c.map.kf_t[:nk]).abs().max()))
+    if not pose_diff < 1e-3:
+        bad.append(f"keyframe poses {pose_diff} from the CPU's")
+    pend = g._pending
+    if pend is None or pend.kind != "gba" or (g.device.type == "cuda" and pend.done is None):
+        bad.append("no GBA posted on the side stream" if pend is None else
+                   f"a {pend.kind} chain posted, its event {pend.done}")
+    else:
+        # the GBA's inputs as the side stream read them, copied to the CPU
+        # after the current stream's work (the copy waits for nothing else)
+        m_in, bank_in = (type(x)(*(y.cpu() for y in x)) for x in pend.inputs)
+        g._merge_pending(force=True)
+        torch.cuda.synchronize()
+        m = g.map
+        centre_gba = float(torch.linalg.norm(-m.kf_R[kr].T @ m.kf_t[kr]))
+        if g._pending is not None or centre_gba >= 0.15 or not bool(torch.isfinite(m.pt_xyz).all()):
+            bad.append(f"after the GBA: centre {centre_gba}, pending "
+                       f"{g._pending is not None}")
+        # the same GBA on the CPU from those inputs.  The exploring keyframes
+        # each see only their own points, so a GBA leaves each such keyframe
+        # free to move with its points (a similarity gauge) and float
+        # rounding moves them apart by up to ~0.03; what the GBA determines
+        # is held: every observation's projection within 0.02 px, points
+        # within 1e-4 of the map's extent, keyframe 0 and the revisit
+        # keyframe (they share the fused points) within 1e-4, the same cull
+        # verdicts
+        ref = system.gba(c.cfg, c.cam_params, m_in, kr, bank_in)
+        m_c = type(m)(*(x.cpu() for x in m))
+        ok = ref.pt_valid
+        uv_g, meas = loop_scene.reprojections(m_c)
+        uv_r, meas_r = loop_scene.reprojections(ref)
+        gba_uv = float((uv_g - uv_r).abs().max()) if torch.equal(meas, meas_r) else float("inf")
+        gba_pose = max(float((getattr(m_c, f)[k] - getattr(ref, f)[k]).abs().max())
+                       for f in ("kf_R", "kf_t") for k in (0, kr))
+        gba_free = float((m_c.kf_t[:nk] - ref.kf_t[:nk]).abs().max())
+        gba_pts = float((m_c.pt_xyz[ok] - ref.pt_xyz[ok]).abs().max() / ref.pt_xyz[ok].abs().max())
+        gba_rms = float(((uv_g - meas) ** 2).sum(1).mean().sqrt())
+        if not (gba_uv < 0.02 and gba_pose < 1e-4 and gba_pts < 1e-4) or \
+                not torch.equal(m_c.pt_valid, ok):
+            bad.append(f"the card's GBA from the CPU's on the same inputs: projections {gba_uv} "
+                       f"px, poses of keyframes 0 and {kr} {gba_pose}, points {gba_pts} of the "
+                       f"extent")
+        # the CPU copy's own GBA (run inline in its try_close), merged: its
+        # input differs from the card's by the closure's rounding, and the
+        # exploring keyframes, each alone with its points, are free in the
+        # GBA's gauge, so only its gates are held
+        c._merge_pending(force=True)
+        cm = c.map
+        centre_cpu = float(torch.linalg.norm(-cm.kf_R[kr].T @ cm.kf_t[kr]))
+        if c._pending is not None or centre_cpu >= 0.15:
+            bad.append(f"the CPU copy's GBA: centre {centre_cpu}, pending {c._pending is not None}")
+        gba_copy = max(float((m.kf_R[:nk].cpu() - cm.kf_R[:nk]).abs().max()),
+                       float((m.kf_t[:nk].cpu() - cm.kf_t[:nk]).abs().max()))
+        out.update(centre_gba=centre_gba, gba_pose=gba_pose, gba_pts=gba_pts, gba_uv=gba_uv,
+                   gba_free=gba_free, gba_rms=gba_rms, centre_cpu=centre_cpu,
+                   gba_copy=gba_copy)
+    if bad:
+        _fail("loop closure at the default capacity: " + "; ".join(bad))
+    out.update(closure=lc.last_closure, centre=centre, dup=dup, pose_diff=pose_diff,
+               close_ms=close_ms, cpu_ms=cpu_ms)
+
+    # the parts alone: CUDA events, then kernels and device time per call
+    m0, bank0 = before
+    sa, skw = seen["sim3"]
+    pa, pkw = seen["pose_graph"]
+    parts = {
+        "detect": (lambda: lc.detect(m0, kr, rv.ff), 5),
+        "solve_sim3": (lambda: solve(*sa, **skw), 5),
+        "optimize_pose_graph": (lambda: optimize(*pa, **pkw), 2),
+        "gba": (lambda: system.gba(g.cfg, g.cam_params, m0, kr, bank0), 2)}
+    timed = {}
+    for name, (fn, runs) in parts.items():
+        ms = _event_ms(fn, runs=runs)
+        durs, per_call = profile_keyframe.kernel_durations(fn, [""], runs=1)
+        timed[name] = dict(ms=ms, launches=per_call, device_ms=sum(durs[""]) / 1e3)
+    out["parts"] = timed
+    out["capacity"] = g.cfg.map_capacity
+    return out
+
+
+def print_loop(lp: dict, st6: dict) -> None:
+    """Phase 9's lines."""
+    a, ch = lp["a_stats"], lp["chains"]
+    print(f"loop 9a: phase 6's 78 frames with async mapping and loop closing in "
+          f"{lp['a_s']:.1f} s: initialised at frame {a['init_frame']}, OK on every later "
+          f"frame, 0 resets, {a['n_kf']} keyframes, {a['n_points']} points, ATE "
+          f"{a['ate']:.5g} ({a['ate'] / a['span']:.4f} of the span); detect at every "
+          f"keyframe ({lp['n_detect']}), 0 loops closed; keyframe chains posted "
+          f"{ch.get('posted kf', 0)}, merged at a poll {ch.get('merged kf at a poll', 0)}, "
+          f"forced {ch.get('merged kf forced', 0)} (at the last frame: "
+          f"{lp['chains_before_shutdown']}, pending {lp['pending_at_end']}), none pending "
+          f"after shutdown; medians on the host clock: tracked frame {a['frame_ms']:.3f} ms, "
+          f"keyframe frame {a['kf_frame_ms']:.3f} ms (phase 6, synchronous, this run: "
+          f"{st6['frame_ms']:.3f} / {st6['kf_frame_ms']:.3f} ms)", flush=True)
+    cap, cl = lp["capacity"], lp["closure"]
+    print(f"loop 9b: drifted revisit at {cap.n_kf} / {cap.n_pt} / {cap.n_obs} with "
+          f"1200-keypoint frames: keyframe {cl['kf']} closed with keyframe {cl['cand']} "
+          f"({cl['n_matches']} matches, {cl['n_inliers']} Sim3 inliers), centre "
+          f"{lp['centre']:.4g} from the origin (< 0.15), duplicates {lp['dup']:.4g} from the "
+          f"originals (< 0.2), loop edge persisted; the CPU copy with the same samples closed "
+          f"the same, poses within {lp['pose_diff']:.3g}; the GBA posted on the side stream, "
+          f"merged forced, centre {lp['centre_gba']:.4g} after it, every point finite, "
+          f"against the same GBA on the CPU from its inputs: projections within "
+          f"{lp['gba_uv']:.3g} px (RMS residual {lp['gba_rms']:.3g} px), points within "
+          f"{lp['gba_pts']:.3g} of the extent, keyframes 0 and {cl['kf']} within "
+          f"{lp['gba_pose']:.3g}, the gauge-free exploring keyframes' translations "
+          f"{lp['gba_free']:.3g} apart; the CPU copy's own GBA merged: centre "
+          f"{lp['centre_cpu']:.4g}, translations {lp['gba_copy']:.3g} from the card's; "
+          f"try_close {lp['close_ms']:.1f} ms on the host clock (CPU copy, its GBA "
+          f"inline, {lp['cpu_ms']:.1f} ms)", flush=True)
+    for name, t in lp["parts"].items():
+        print(f"  {name}: {t['ms']:.3f} ms (CUDA events), {t['launches']} kernels, "
+              f"{t['device_ms']:.3f} ms of device time", flush=True)
+
+
 def patch_kernel_work(sel, angle) -> dict:
     """Per kernel, the bytes and operations that these keypoints need: the
     distinct pixels the windows touch (each read once), the keypoints, the
@@ -783,6 +1028,17 @@ def main() -> int:
     il = ip["launches"]
     print_inertial(ip)
 
+    # 9. loop closing and async mapping -------------------------------------
+    orb_patches.reset_counters()
+    t0 = time.perf_counter()
+    lp = {**async_loop_phase(scfg, sframes, dev), **closure_phase(dev)}
+    loop_launches = orb_patches.launch_counts()
+    if loop_launches != {"ic_moments": 0, "brief_desc": 0,
+                         "orb_describe": len(scfg.track_frames)}:
+        _fail(f"launch counters {loop_launches} for {len(scfg.track_frames)} frames")
+    print_loop(lp, st)
+    print(f"loop: phase {time.perf_counter() - t0:.1f} s; launches {loop_launches}", flush=True)
+
     # report ----------------------------------------------------------------
     src = "orbslam3_tpu_torch/csrc/orb_patches.cu"
     replaces = {"ic_moments": "orbslam3_tpu/ops/pallas_patches.py:58",
@@ -796,7 +1052,8 @@ def main() -> int:
          "launches": sys_launches[k],
          "launches_per_path": {"tracking": launches[k], "keyframe": kf_launches[k],
                                "system": sys_launches[k],
-                               "relocalization": reloc_launches[k], "inertial": il[k]},
+                               "relocalization": reloc_launches[k], "inertial": il[k],
+                               "loop": loop_launches[k]},
          "max_abs_err": err[k], "ms": ev_ms[k], "plain_ms": plain_ms[k],
          "bound_ms": work[k]["bound_ms"], "bound_by": work[k]["bound_by"],
          "library_ms": None, "device_ms": dev_ms[k], "bytes": work[k]["bytes"],

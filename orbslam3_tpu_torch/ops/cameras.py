@@ -49,7 +49,8 @@ def pinhole_project_jac(params: torch.Tensor, xc: torch.Tensor) -> torch.Tensor:
 
 def _unported(model: str):
     if model == KANNALA_BRANDT8:
-        return NotImplementedError("the Kannala-Brandt-8 camera is not ported yet")
+        return NotImplementedError("the Kannala-Brandt-8 camera is not ported yet "
+                                   "(ROADMAP queue 1 item 6)")
     return ValueError(f"unknown camera model {model}")
 
 

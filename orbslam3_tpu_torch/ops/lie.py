@@ -1,10 +1,11 @@
-"""Lie-group operations on SO(3) and SE(3), the part the tracking slice calls.
+"""Lie-group operations on SO(3), SE(3) and Sim(3), the part the port calls.
 
 Counterpart of `orbslam3_tpu/ops/lie.py`.  Rotations are 3x3 float32
 matrices; every function broadcasts over leading batch dimensions.  SE(3)
 is a pair (R, t) with the reference's convention: T_cw maps world to
-camera, x_c = R x_w + t.  Matrix products run in full float32 (the
-package's precision policy), as the JAX code pins Precision.HIGHEST.
+camera, x_c = R x_w + t; Sim(3) a triple (R, t, s) with x' = s R x + t.
+Matrix products run in full float32 (the package's precision policy), as
+the JAX code pins Precision.HIGHEST.
 """
 
 from __future__ import annotations
@@ -178,3 +179,20 @@ def se3_compose(Ra, ta, Rb, tb):
 
 def se3_apply(R, t, x):
     return _mv(R, x) + t
+
+
+# Sim(3): (R, t, s) with x' = s R x + t (loop closure).
+
+def sim3_apply(R, t, s, x):
+    return s[..., None] * _mv(R, x) + t
+
+
+def sim3_inverse(R, t, s):
+    Rt = R.transpose(-1, -2)
+    s_inv = 1.0 / s
+    return Rt, -s_inv[..., None] * _mv(Rt, t), s_inv
+
+
+def sim3_compose(Ra, ta, sa, Rb, tb, sb):
+    """(Ra, ta, sa) o (Rb, tb, sb): applies b first, then a."""
+    return Ra @ Rb, sa[..., None] * _mv(Ra, tb) + ta, sa * sb

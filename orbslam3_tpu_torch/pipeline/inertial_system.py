@@ -36,9 +36,14 @@ device.  The preintegration loops over the valid rows only; the JAX
 package's padding to fixed capacities (64 / 512 rows, power-of-two factor
 stacks) exists for its jit shapes and changes no result.
 
-Not reachable in this port: the post-loop full inertial BA (`_schedule_gba`
-belongs to loop closing, which `System` refuses) and the georeference of
-`_apply_world_sim3` (GNSS, refused likewise).
+After a loop closure on an IMU-initialized map the pending GBA is the full
+inertial BA over every factor (`_schedule_gba`), and its merge carries the
+velocity and drops the frame prior.  The keyframe step stays synchronous
+(`_async_ok` is False, as in JAX: the LastKeyFrame factor reads the
+keyframe's post-BA velocity and bias), and the inertial tracked frame does
+not poll the pending chain: a keyframe, a loss, an archive or shutdown
+merges it, as in JAX.  Not reachable in this port: the georeference of
+`_apply_world_sim3` (GNSS, refused by `System`).
 """
 
 from __future__ import annotations
@@ -181,13 +186,17 @@ class VITrackOut(NamedTuple):
 
 class InertialSystem(base.System):
     # stereo-inertial sets True: the scale is metric already and the init
-    # solves gravity, bias and velocities only (stereo is queue 1 item 8)
+    # solves gravity, bias and velocities only (stereo is queue 1 item 6)
     imu_fix_scale = False
 
     def __init__(self, config: base.SlamConfig, icfg: InertialConfig, device=None,
                  seed: int = 42):
         super().__init__(config, device=device, seed=seed)
         self.icfg = icfg
+        # the VI chain couples tracking to the keyframe's optimization (the
+        # LastKeyFrame factor reads post-BA velocities and biases), so the
+        # keyframe step stays synchronous
+        self._async_ok = False
         dev = self.device
         Tbc = np.asarray(icfg.Tbc, np.float64).reshape(4, 4) if icfg.Tbc else np.eye(4)
         on = lambda x: torch.tensor(np.asarray(x, np.float32), device=dev)
@@ -572,8 +581,21 @@ class InertialSystem(base.System):
                            self.icfg.fiba_cams, pts, obs, self.icfg.fiba_iters, pcg=48)
 
     def _schedule_gba(self, ki: int) -> None:
-        raise NotImplementedError(
-            "the post-loop full inertial BA belongs to loop closing, queue 1 item 7")
+        """On an IMU-initialized map the post-loop GBA is the full inertial
+        BA (reference LoopClosing::RunGlobalBundleAdjustment runs
+        Optimizer::FullInertialBA there): a visual GBA leaves the monocular
+        scale gauge free and could rescale the metric map."""
+        if not self.imu_initialized or not self.preints:
+            return super()._schedule_gba(ki)
+        if not self.cfg.post_loop_gba:
+            return
+        f = self._factor_stack(self.preint_kf_pairs, self.preints)
+        cams, pts, obs = self.cfg.ba_caps
+        self._post_chain(
+            lambda m, bank, f_: self._vi_ba(m, ki, f_, bank, self.cfg.map_capacity.n_kf,
+                                            self.icfg.fiba_cams, pts, obs,
+                                            self.icfg.fiba_iters, pcg=48),
+            ki, "gba", (self.map, self.bank, f))
 
     # -------------------------------------------------------------- IMU init
     def _initialize_imu(self, prior_g: float = 1e2, prior_a: float = 1e6) -> bool:

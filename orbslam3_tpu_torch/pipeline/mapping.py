@@ -5,10 +5,11 @@ Counterpart of `orbslam3_tpu/pipeline/mapping.py` (parity target: the
 reference LocalMapping stages, src/LocalMapping.cc: CreateNewMapPoints
 :413-726 and the local BA dispatch :117-152).  The window BA runs the
 grid solver with observations from the FeatureBank or the COO list, over
-the covisibility window or the temporal one; `gather_window_problem_bank`
-gathers the COO problem that the visual-inertial BA solves.  The visual
-COO solvers (PCG and dense Schur), the sharded BA and GNSS priors are not
-ported yet and raise.
+the covisibility window or the temporal one; `gather_window_problem` and
+`gather_window_problem_bank` gather the COO problem that the COO bundle
+adjuster (the post-loop full-map GBA among its callers) and the
+visual-inertial BA solve.  The sharded BA and GNSS priors are not ported
+yet and raise.
 
 Tie rules kept from JAX: `lax.top_k` and `jnp.argsort` keep the lower
 index first on ties, so the port sorts stably; `argmin` takes the first
@@ -74,7 +75,7 @@ def triangulate_new_points(ff_cur: FeatureFrame, ff_prev: FeatureFrame,
     if cam_model != cameras.PINHOLE:
         raise NotImplementedError(
             "triangulation in ray space (KB8 fisheye) comes with the other "
-            "sensors, queue 1 item 8")
+            "sensors, queue 1 item 6")
     sf = _scale_factors(scale_factor, n_levels, ff_cur.xy.device)
     sigma2 = sf ** 2
     F_cp = fundamental_from_poses(R_cur, t_cur, R_prev, t_prev, K4)
@@ -387,6 +388,58 @@ def gather_window_grid_bank(m: mapstate.MapState, bank: fb.FeatureBank, center_k
     return prob, cam_sel, cam_sel_valid, pt_sel, prob.pt_valid
 
 
+def gather_window_problem(m: mapstate.MapState, center_kf, window: int, n_levels: int,
+                          scale_factor: float, cap_cams: int = 32, cap_pts: int = 8192,
+                          cap_obs: int = 32768, window_mode: str = "covis",
+                          min_anchors: int = 2):
+    """The window problem as COO observations from the map's observation
+    list (reference LocalBundleAdjustment window, src/Optimizer.cc:1069-1140):
+    the points the window observes, budgeted by their observation count;
+    every observer of those points, in-window cameras first (free), the
+    best-connected others after them (fixed anchors); their observations
+    compacted to `cap_obs`.  Returns (BAProblem, cam_sel, cam_sel_valid,
+    pt_sel, pt_valid)."""
+    K = m.kf_R.shape[0]
+    P = m.pt_xyz.shape[0]
+    dev = m.pt_xyz.device
+    i32 = torch.int32
+    sf = _scale_factors(scale_factor, n_levels, dev)
+    in_window, _ = _window(m, center_kf, window, window_mode)
+
+    obs_pt_c = torch.clamp(m.obs_pt, 0, P - 1).long()
+    obs_kf_c = torch.clamp(m.obs_kf, 0, K - 1).long()
+    obs_ok = m.obs_valid & m.pt_valid[obs_pt_c] & m.kf_valid[obs_kf_c]
+    # points observed by the window, budgeted by observation count
+    pt_in = torch.zeros(P, dtype=i32, device=dev).index_add_(
+        0, obs_pt_c, (obs_ok & in_window[obs_kf_c]).to(i32)) > 0
+    nobs = torch.zeros(P, dtype=i32, device=dev).index_add_(0, obs_pt_c, obs_ok.to(i32))
+    pt_sel, pt_sel_valid, pt_inv = _compact(pt_in, cap_pts, score=nobs)
+
+    # observations of those points from any keyframe; in-window cameras
+    # survive the capacity cut, then the best-connected anchors
+    obs_rel = obs_ok & (pt_inv[obs_pt_c] >= 0)
+    cam_nobs = torch.zeros(K, dtype=i32, device=dev).index_add_(0, obs_kf_c, obs_rel.to(i32))
+    cam_touched = (cam_nobs > 0) | in_window
+    cam_score = cam_nobs.to(torch.float32) + torch.where(in_window, 1e6, 0.0)
+    cam_sel, cam_sel_valid, cam_inv = _compact(cam_touched, cap_cams, score=cam_score)
+    obs_rel = obs_rel & (cam_inv[obs_kf_c] >= 0)
+    obs_sel, obs_sel_valid, _ = _compact(obs_rel, cap_obs)
+
+    o_kf = cam_inv[obs_kf_c[obs_sel]]
+    o_pt = pt_inv[obs_pt_c[obs_sel]]
+    inv_sigma2 = 1.0 / sf[_lv(m.obs_octave[obs_sel], n_levels)] ** 2
+    prob = ba.BAProblem(
+        R=m.kf_R[cam_sel], t=m.kf_t[cam_sel],
+        cam_fixed=_anchors(in_window, cam_sel, cam_sel_valid, min_anchors),
+        cam_valid=cam_sel_valid,
+        X=m.pt_xyz[pt_sel], pt_valid=pt_sel_valid & m.pt_valid[pt_sel],
+        obs_cam=torch.clamp_min(o_kf, 0), obs_pt=torch.clamp_min(o_pt, 0),
+        obs_uv=m.obs_uv[obs_sel], obs_inv_sigma2=inv_sigma2,
+        obs_valid=obs_sel_valid & (o_kf >= 0) & (o_pt >= 0),
+        obs_ur=m.obs_ur[obs_sel])
+    return prob, cam_sel, cam_sel_valid, pt_sel, prob.pt_valid
+
+
 def gather_window_problem_bank(m: mapstate.MapState, bank: fb.FeatureBank, center_kf,
                                window: int, n_levels: int, scale_factor: float,
                                cap_cams: int = 32, cap_pts: int = 8192, cap_obs: int = 32768,
@@ -438,37 +491,58 @@ def gather_window_problem_bank(m: mapstate.MapState, bank: fb.FeatureBank, cente
 
 
 def run_local_ba(m: mapstate.MapState, center_kf, cam_model: str, cam_params,
-                 window: int = 8, iterations: int = 10,
-                 scale_factor: float = 1.2, n_levels: int = 8,
-                 stereo_bf: float = 0.0, mesh=None, prior_pos=None,
-                 schur_solver: str = "auto", bank=None,
-                 cap_cams: int = 32, cap_pts: int = 8192, cap_obs: int = 32768):
-    """Local BA on a covisibility keyframe window (reference
-    LocalBundleAdjustment): gather the window into the grid, run the grid
-    LM solver, and write the free cameras and the window points back.
+                 window: int = 8, iterations: int = 10, scale_factor: float = 1.2,
+                 n_levels: int = 8, chi2_cull: float = 7.5, stereo_bf: float = 0.0,
+                 mesh=None, prior_pos=None, prior_w=None, pcg_iters: int = 32,
+                 schur_solver: str = "auto", bank=None, **caps):
+    """Local BA on a keyframe window (reference LocalBundleAdjustment):
+    gather the window, solve, and write the free cameras and the window
+    points back.  `caps`: cap_cams, cap_pts, cap_obs and window_mode
+    ("covis" or "temporal"), as in the JAX package.
 
-    Only the grid solver is ported: a mesh (sharded BA, queue 1 item 10),
-    GNSS priors (item 9), more than 32 cameras or an explicit COO solver
-    (item 7) raise.  `cap_obs` sizes the COO solvers and is unused here."""
+    Window-sized problems (no mesh, no priors, at most 32 cameras) go to the
+    grid solver, whose gather is always the covisibility window, as in JAX;
+    the others (`schur_solver` "pcg" or "dense") to the COO bundle adjuster,
+    gathered from the feature bank when one is given, else from the map's
+    observation list.  `chi2_cull` and `prior_w` are accepted only for
+    parity with the JAX signature and are not read (`chi2_cull` is unused
+    in JAX too; `prior_w` goes with `prior_pos`).  The sharded BA (`mesh`,
+    ROADMAP queue 1 item 9) and GNSS position priors (`prior_pos`, item 7)
+    are not ported yet and raise."""
+    if mesh is not None:
+        raise NotImplementedError("the sharded BA over a mesh is queue 1 item 9")
+    if prior_pos is not None:
+        raise NotImplementedError("the GNSS-constrained BA (position priors) is queue 1 item 7")
+    cap_cams = caps.get("cap_cams", 32)
+    window_mode = caps.pop("window_mode", "covis")
     if schur_solver == "auto":
-        schur_solver = "grid" if (mesh is None and prior_pos is None and
-                                  cap_cams <= 32) else "pcg"
-    if schur_solver != "grid":
-        raise NotImplementedError(
-            "the COO bundle adjustment (PCG / dense Schur) is queue 1 item 7; "
-            "the sharded BA item 10; GNSS priors item 9")
-    if bank is not None:
-        prob, cam_sel, cam_ok, pt_sel, pt_ok = gather_window_grid_bank(
-            m, bank, center_kf, window, n_levels, scale_factor,
-            cam_model=cam_model, cam_params=cam_params,
-            cap_cams=cap_cams, cap_pts=cap_pts)
+        schur_solver = "grid" if cap_cams <= 32 else "pcg"
+    if schur_solver == "grid":
+        cap_pts = caps.get("cap_pts", 8192)
+        if bank is not None:
+            prob, cam_sel, cam_ok, pt_sel, pt_ok = gather_window_grid_bank(
+                m, bank, center_kf, window, n_levels, scale_factor,
+                cam_model=cam_model, cam_params=cam_params,
+                cap_cams=cap_cams, cap_pts=cap_pts)
+        else:
+            prob, cam_sel, cam_ok, pt_sel, pt_ok = gather_window_grid(
+                m, center_kf, window, n_levels, scale_factor,
+                cap_cams=cap_cams, cap_pts=cap_pts)
+        R, t, X, _ = ba_grid.bundle_adjust_grid(prob, cam_model, cam_params,
+                                                iterations=iterations, stereo_bf=stereo_bf)
     else:
-        prob, cam_sel, cam_ok, pt_sel, pt_ok = gather_window_grid(
-            m, center_kf, window, n_levels, scale_factor,
-            cap_cams=cap_cams, cap_pts=cap_pts)
-    R, t, X, _ = ba_grid.bundle_adjust_grid(prob, cam_model, cam_params,
-                                            iterations=iterations,
-                                            stereo_bf=stereo_bf)
+        if bank is not None:
+            prob, cam_sel, cam_ok, pt_sel, pt_ok = gather_window_problem_bank(
+                m, bank, center_kf, window, n_levels, scale_factor,
+                window_mode=window_mode, **caps)
+        else:
+            prob, cam_sel, cam_ok, pt_sel, pt_ok = gather_window_problem(
+                m, center_kf, window, n_levels, scale_factor, window_mode=window_mode,
+                **caps)
+        res = ba.bundle_adjust(prob, cam_model, cam_params, iterations=iterations,
+                               stereo_bf=stereo_bf, pcg_iters=pcg_iters,
+                               schur_solver=schur_solver)
+        R, t, X = res.R, res.t, res.X
     # scatter back the free cameras and the window points
     K = m.kf_R.shape[0]
     P = m.pt_xyz.shape[0]

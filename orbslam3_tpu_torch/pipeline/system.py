@@ -8,8 +8,15 @@ System + Tracking state machine, src/System.cc, src/Tracking.cc):
     matching, two-view reconstruction, the initial map with median-depth
     normalization and a two-keyframe BA (src/Tracking.cc:566-768),
   * per frame: motion-model prediction -> TrackLocalMap -> keyframe
-    decision -> the synchronous keyframe frame (insertion, triangulation,
-    point culling, window BA, fusion, keyframe culling, compaction),
+    decision -> the keyframe frame (insertion, triangulation, point
+    culling, window BA, fusion, keyframe culling, compaction, loop closing),
+  * with `async_mapping`, the reference's Tracking || LocalMapping overlap
+    (src/System.cc:113): the keyframe frame inserts and triangulates, then
+    posts point culling + window BA as a pending chain against the
+    post-insert snapshot, and the optimized map is swapped in by
+    `_merge_pending` (polled every tracked frame, forced at the next
+    keyframe, a loss, an archive, localization mode and shutdown), where
+    the stages after the BA run,
   * loss: every lost frame tries to relocalize against the keyframe
     database (upstream Tracking::Relocalization); RECENTLY_LOST for
     `reloc_patience` frames, then the map is archived in the Atlas and a
@@ -17,11 +24,26 @@ System + Tracking state machine, src/System.cc, src/Tracking.cc):
   * timestamp failsafes (src/Tracking.cc:383-395).
 
 The keyframe programs (`System._insert_kf`, `_cull`, `_local_ba`,
-`_kf_step`, `_kf_pose_refresh`, `_remap_bindings` and the map stages of
-`_post_ba_stages`) are module-level functions of the configuration, the
-camera parameters and the state they act on; the `System` class drives
-them.  Each keyframe's features and bindings live in the device feature
-bank only (the JAX class also mirrors them in host dictionaries).
+`_kf_step`, `_kf_pose_refresh`, `_remap_bindings`, `_cull_ba`, `_gba`,
+`_merge_opt` and the map stages of `_post_ba_stages`) are module-level
+functions of the configuration, the camera parameters and the state they
+act on; the `System` class drives them.  Each keyframe's features and
+bindings live in the device feature bank only (the JAX class also mirrors
+them in host dictionaries), so a pending keyframe chain carries its
+keyframe's `FeatureFrame` for the stages run at its swap-in.
+
+The pending chain (the async keyframe tail, or the full-map GBA that a loop
+closure posts) runs on a dedicated CUDA stream, which first waits for the
+current stream; an event recorded after the chain is what the per-frame
+poll queries (JAX's `is_ready`), and a forced merge makes the current
+stream wait on it, not the host.  The chain's inputs stay referenced by the
+pending entry until the merge, and its outputs are marked with
+`record_stream` there, so that the caching allocator reuses no block that
+the other stream still reads.  Nothing on the tracked-frame path writes in
+place into a map tensor (every op returns new tensors), so the snapshot the
+chain reads stays as it was.  The host still issues the chain's launches
+from its one thread, between the tracked frame's: the overlap is on the
+card.  On the CPU the chain runs inline and a poll always finds it done.
 
 With `enable_relocalization` (true by default, as in the JAX package) the
 `System` builds a `loop_closing.LoopCloser`: the 65536-word vocabulary and
@@ -31,9 +53,9 @@ session, and queried by `relocalization.attempt_relocalization` on every
 lost frame.
 
 Not ported yet, and refused by `System` when the configuration asks for
-them: asynchronous mapping, loop closing (its detection half is in
-`loop_closing.py`, the Sim3 correction is not), GNSS, the sharded BA,
-non-pinhole cameras and stereo.
+them: GNSS, the sharded BA, non-pinhole cameras and stereo; map merging
+(`enable_loop_closing` with a stored Atlas session) is refused when a
+keyframe would run it.
 
 Everything stays on the device except where the reference itself reads a
 value back: per frame the inlier count (read together with the pose that
@@ -41,15 +63,17 @@ the trajectory records); per initialization attempt the keypoint count, the
 match count, the outcome and the median depth; in the keyframe frame the
 redundancy flags of keyframe culling and the capacity check of slot
 compaction, both in `post_ba_stages`; per relocalization attempt the
-database's scores and the batch's decision.  Feeding the database reads
+database's scores and the batch's decision; per loop-closing attempt what
+`LoopCloser.try_close` reads.  Feeding the database reads
 nothing.  Keyframe indices are host ints, as the JAX class mirrors them on
 the host.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -182,7 +206,7 @@ def local_ba(cfg: SlamConfig, cam, m: mapstate.MapState, center_kf,
     """The window BA of the keyframe step (grid solver, bank-sourced when a
     bank is given)."""
     if cfg.ba_mesh_shards > 1:
-        raise NotImplementedError("the sharded local BA is queue 1 item 10")
+        raise NotImplementedError("the sharded local BA is queue 1 item 9")
     cams, pts, obs = cfg.ba_caps
     return mapping.run_local_ba(
         m, center_kf, cfg.cam_model, cam, window=cfg.local_ba_window,
@@ -244,13 +268,15 @@ def post_ba_stages(cfg: SlamConfig, cam, m: mapstate.MapState,
     of the point or observation capacity.  Returns (map, bank, kp_pt of
     `ki`, view, culled): the view is rebuilt around `ki` if a stage changed
     the map, and `culled` is the index of the keyframe that culling removed
-    (None if none), for what the caller keeps per keyframe beside the map.  With a `loop_closer` its keyframe database follows the map: a
-    culled keyframe is erased from it (reference KeyFrame::SetBadFlag ->
+    (None if none), for what the caller keeps per keyframe beside the map.
+    With a `loop_closer` its keyframe database follows the map: a culled
+    keyframe is erased from it (reference KeyFrame::SetBadFlag ->
     KeyFrameDatabase::erase, src/KeyFrameDatabase.cc:66: a culled keyframe
-    must never come back as a candidate with its frozen pose) and keyframe
-    `ki` is registered at the end, which is the JAX stage's relocalization-
-    only mode.  Loop detection and closure (queue 1 item 7) and the GNSS
-    stage (item 9) are not ported yet and are left out."""
+    must never come back as a candidate with its frozen pose), and without
+    loop closing keyframe `ki` is registered at the end (the JAX stage's
+    relocalization-only mode; with it, `LoopCloser.try_close` registers the
+    keyframe, after this function, in `System._post_ba_stages`).  The GNSS
+    stage (queue 1 item 7) is not ported yet and is left out."""
     dirty = False
     culled = None
     # SearchInNeighbors (reference src/LocalMapping.cc:764), then
@@ -280,11 +306,82 @@ def post_ba_stages(cfg: SlamConfig, cam, m: mapstate.MapState,
             kp_pt = remap_bindings(kp_pt, remap)
             bank = bank._replace(kp_pt=remap_bindings(bank.kp_pt, remap))
             dirty = True
-    if loop_closer is not None:
+    if loop_closer is not None and not cfg.enable_loop_closing:
         loop_closer.add_keyframe(m, ki, ff)
     if dirty or view is None:
         view = local_view(cfg, m, ki)
     return m, bank, kp_pt, view, culled
+
+
+def cull_ba(cfg: SlamConfig, cam, m: mapstate.MapState, frame_id, center,
+            bank: fb.FeatureBank) -> mapstate.MapState:
+    """The async keyframe chain: point culling and the window BA."""
+    return local_ba(cfg, cam, cull(m, frame_id), center, bank)
+
+
+def gba(cfg: SlamConfig, cam, m: mapstate.MapState, center_kf,
+        bank: fb.FeatureBank) -> mapstate.MapState:
+    """The full-map global BA after a loop closure (reference
+    GlobalBundleAdjustemnt, src/Optimizer.cc:60-76: every keyframe and point,
+    the first keyframe fixed): the capacity-wide temporal window from the
+    bank through the COO bundle adjuster's PCG Schur solve (a grid would be
+    a (P, K) slab at 24576 x 256)."""
+    cap = cfg.map_capacity
+    return mapping.run_local_ba(
+        m, center_kf, cfg.cam_model, cam, window=cap.n_kf, iterations=cfg.gba_iters,
+        scale_factor=cfg.orb.scale_factor, n_levels=cfg.orb.n_levels,
+        stereo_bf=cfg.stereo_bf, pcg_iters=cfg.ba_pcg_iters, schur_solver="pcg",
+        window_mode="temporal", cap_cams=cap.n_kf, cap_pts=cap.n_pt, cap_obs=cap.n_obs,
+        bank=bank)
+
+
+def anchor_correction(m_live: mapstate.MapState, m_opt: mapstate.MapState):
+    """A: live world -> optimized world, x -> R_A x + t_A, from the last
+    keyframe of the optimized snapshot: A = (T_a^opt)^-1 T_a^live."""
+    a = torch.clamp_min(m_opt.n_kf - 1, 0)
+    R_ao, t_ao = _row(m_opt.kf_R, a), _row(m_opt.kf_t, a)
+    R_A = R_ao.T @ _row(m_live.kf_R, a)
+    return R_A, R_ao.T @ (_row(m_live.kf_t, a) - t_ao)
+
+
+def merge_opt(m_live: mapstate.MapState, m_opt: mapstate.MapState) -> mapstate.MapState:
+    """Swap an optimized snapshot's geometry into the live map: keyframe
+    poses, point positions and cull verdicts from the snapshot, the tracking
+    counters from the live map.  Keyframes and points appended after the
+    snapshot are not in it; they ride the anchor correction A (the analogue
+    of the reference carrying the GBA correction to keyframes created during
+    the GBA through the spanning tree, src/LoopClosing.cc
+    RunGlobalBundleAdjustment): T_j = T_j^live A^-1, X = A X^live, world
+    velocities rotated by R_A."""
+    P, K = m_live.pt_xyz.shape[0], m_live.kf_R.shape[0]
+    dev = m_live.pt_xyz.device
+    new_pt = torch.arange(P, device=dev) >= m_opt.n_pt
+    new_kf = torch.arange(K, device=dev) >= m_opt.n_kf
+    R_A, t_A = anchor_correction(m_live, m_opt)
+    Rj = m_live.kf_R @ R_A.T
+    tj = m_live.kf_t - torch.einsum("kij,j->ki", Rj, t_A)
+    return m_live._replace(
+        kf_R=torch.where(new_kf[:, None, None], Rj, m_opt.kf_R),
+        kf_t=torch.where(new_kf[:, None], tj, m_opt.kf_t),
+        kf_vel=torch.where(new_kf[:, None], m_live.kf_vel @ R_A.T, m_opt.kf_vel),
+        kf_bias=torch.where(new_kf[:, None], m_live.kf_bias, m_opt.kf_bias),
+        pt_xyz=torch.where(new_pt[:, None], m_live.pt_xyz @ R_A.T + t_A, m_opt.pt_xyz),
+        pt_valid=torch.where(new_pt, m_live.pt_valid, m_live.pt_valid & m_opt.pt_valid))
+
+
+class Pending(NamedTuple):
+    """A posted device chain: its optimized map, the keyframe it was posted
+    for, its kind ("kf": the async keyframe tail, whose keyframe's features
+    and timestamp the stages after the BA need at swap-in; "gba": the
+    full-map GBA), the event recorded after it on the side stream (None on
+    the CPU) and the inputs it reads, kept alive until the merge."""
+    m_opt: mapstate.MapState
+    ki: int
+    kind: str
+    ff: Optional[FeatureFrame]
+    ts: float
+    done: Optional[torch.cuda.Event]
+    inputs: tuple
 
 
 def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -312,12 +409,10 @@ def renorm_init(m: mapstate.MapState, kf2) -> mapstate.MapState:
 def _check_ported(cfg: SlamConfig) -> None:
     """Refuse a configuration that asks for a part not ported yet."""
     asked = [
-        (cfg.async_mapping, "async_mapping (the pending chain, ROADMAP queue 1 item 4)"),
-        (cfg.enable_loop_closing, "enable_loop_closing (the Sim3 correction, queue 1 item 7)"),
-        (cfg.enable_gnss, "enable_gnss (queue 1 item 9)"),
-        (cfg.ba_mesh_shards > 1, "ba_mesh_shards > 1 (the sharded BA, queue 1 item 10)"),
-        (cfg.cam_model != "pinhole", f"cam_model {cfg.cam_model!r} (queue 1 item 8)"),
-        (cfg.stereo_bf > 0.0, "stereo_bf > 0 (stereo, queue 1 item 8)"),
+        (cfg.enable_gnss, "enable_gnss (ROADMAP queue 1 item 7)"),
+        (cfg.ba_mesh_shards > 1, "ba_mesh_shards > 1 (the sharded BA, queue 1 item 9)"),
+        (cfg.cam_model != "pinhole", f"cam_model {cfg.cam_model!r} (queue 1 item 6)"),
+        (cfg.stereo_bf > 0.0, "stereo_bf > 0 (stereo, queue 1 item 6)"),
     ]
     for flag, what in asked:
         if flag:
@@ -384,6 +479,14 @@ class System:
         # what the last successful initialization did: frame ids, the model
         # that won, the number of points
         self.init_info: Optional[dict] = None
+        # the pending device chain (None or a Pending) and its side stream;
+        # subclasses that couple tracking to the keyframe chain (inertial)
+        # clear _async_ok to keep the keyframe step synchronous
+        self._pending: Optional[Pending] = None
+        self._async_ok = True
+        self._side_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        # chains posted and merged, by kind and by how they were merged
+        self.chain_counts: collections.Counter = collections.Counter()
 
     # ------------------------------------------------------------- frontend
     def _extract(self, img) -> FeatureFrame:
@@ -562,6 +665,8 @@ class System:
     # ------------------------------------------------------------- tracking
     def _track_frame(self, ff: FeatureFrame, ts: float):
         cfg = self.cfg
+        # non-blocking poll: absorb the pending chain if it is done
+        self._merge_pending(force=False)
         # constant-velocity model: T_guess = V * T_cur, V = T_cur T_prev^-1
         if self.has_velocity:
             Rpi, tpi = lie.se3_inverse(self.R_prev, self.t_prev)
@@ -603,27 +708,143 @@ class System:
             self._insert_keyframe(ff, tr, ts, n_inl)
 
     def _insert_keyframe(self, ff: FeatureFrame, tr, ts: float, n_inl: int):
-        """The synchronous keyframe frame."""
+        """The keyframe frame: synchronous, or with `async_mapping` the
+        insertion here and culling + window BA as a pending chain."""
+        # at most one chain in flight: absorb the previous one first
+        self._merge_pending(force=True)
         kp_ur = self._frame_kp_ur(ff)
         self._ensure_bank(ff)
         # add_keyframe appends at index n_kf: host-predictable, no read
         ki = self.n_kf_host
-        m, bank, _, kp_pt_new, _, view = kf_step(
-            self.cfg, self.cam_params, self.map, self.bank, ff, tr.kp_pt, tr.R, tr.t,
-            ts, self.frame_id, kp_ur, ki, ba=self._window_ba())
+        use_async = self.cfg.async_mapping and self._async_ok
+        if use_async:
+            # tracking goes on against the post-insert snapshot (the new
+            # keyframe and its points are visible at once, as after the
+            # reference's ProcessNewKeyFrame); the per-frame pose optimizer
+            # re-anchors the camera to the optimized map after the swap-in
+            m, bank, _, kp_pt_new, _ = insert_kf(
+                self.cfg, self.cam_params, self.map, self.bank, ff, tr.kp_pt, tr.R, tr.t,
+                ts, self.frame_id, kp_ur)
+            view = None
+        else:
+            m, bank, _, kp_pt_new, _, view = kf_step(
+                self.cfg, self.cam_params, self.map, self.bank, ff, tr.kp_pt, tr.R, tr.t,
+                ts, self.frame_id, kp_ur, ki, ba=self._window_ba())
+        self.bank = bank
         self.n_kf_host += 1
         self.last_kf_ts = ts
         self.last_kf_idx = ki
         self.last_kf_id = self.frame_id
         self.inliers_at_last_kf = n_inl
+        if use_async:
+            self.map = m
+            # the forced merge above can itself have posted a GBA (a loop
+            # closure in the stages after the BA): absorb it before claiming
+            # the pending slot, or it would be lost
+            self._drain_pending()
+            frame_id = self.frame_id
+            self._post_chain(lambda m_, bank_: cull_ba(self.cfg, self.cam_params, m_,
+                                                       frame_id, ki, bank_),
+                             ki, "kf", (self.map, self.bank), ff=ff, ts=ts)
+            self._refresh_view()
+            return
         self.R_prev, self.t_prev, R_cur, t_cur = kf_pose_refresh(
             m, ki, self.R_cur, self.t_cur, self.R_prev, self.t_prev)
         self._set_pose(R_cur, t_cur)
+        self.map = m
+        self._post_ba_stages(ki, ff, ts, kp_pt_new, view)
+
+    def _post_ba_stages(self, ki: int, ff: FeatureFrame, ts: float, kp_pt, view=None) -> None:
+        """The stages after the window BA (`post_ba_stages`), then loop
+        closing: sync mode runs them in the keyframe frame, async mode at
+        the swap-in (the reference runs them on its LocalMapping and
+        LoopClosing threads).  With a stored Atlas session the JAX package
+        tries map merging first (queue 1 item 5, not ported yet)."""
         self.map, self.bank, _, self.view, culled = post_ba_stages(
-            self.cfg, self.cam_params, m, bank, ki, ff, kp_pt_new, view,
+            self.cfg, self.cam_params, self.map, self.bank, ki, ff, kp_pt, view,
             loop_closer=self.loop_closer)
         if culled is not None:
             self._cull_keyframe(culled)
+        if self.cfg.enable_loop_closing and self.loop_closer is not None:
+            if self.atlas.sessions:
+                raise NotImplementedError(
+                    "map merging (enable_loop_closing with a stored Atlas session) is "
+                    "ROADMAP queue 1 item 5")
+            if self.loop_closer.try_close(self, ff, ki):
+                self._refresh_view()
+
+    # ------------------------------------------------------- pending chain
+    def _post_chain(self, fn, ki: int, kind: str, inputs: tuple, ff=None, ts: float = 0.0):
+        """Post fn(*inputs) -> optimized map as the pending chain: on the
+        side stream after the current stream's work so far (on the CPU,
+        inline)."""
+        self.chain_counts["posted " + kind] += 1
+        side = self._side_stream
+        if side is None:
+            self._pending = Pending(fn(*inputs), ki, kind, ff, ts, None, inputs)
+            return
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            m_opt = fn(*inputs)
+            done = torch.cuda.Event()
+            done.record(side)
+        self._pending = Pending(m_opt, ki, kind, ff, ts, done, inputs)
+
+    def _merge_pending(self, force: bool = False) -> None:
+        """Swap in the pending chain's optimized map (reference analogue:
+        LocalMapping finishing its keyframe, or the GBA thread's result,
+        reaching Tracking through the shared map).  Geometry from the
+        snapshot, tracking counters and anything appended since from the
+        live map (`merge_opt`).  `force=False` merges only a finished chain
+        and never waits; `force=True` orders the current stream after the
+        chain.  A "gba" merge also carries the tracker (and the inertial
+        tracker's velocity) by the anchor correction, so that the next
+        frames do not track a map that jumped under them; a "kf" merge runs
+        the stages after the BA for its keyframe."""
+        pend = self._pending
+        if pend is None:
+            return
+        if pend.done is not None:
+            if not force and not pend.done.query():
+                return
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(pend.done)
+            for x in pend.m_opt:
+                x.record_stream(cur)
+        self._pending = None
+        self.chain_counts[f"merged {pend.kind} {'forced' if force else 'at a poll'}"] += 1
+        m_live = self.map
+        self.map = merge_opt(m_live, pend.m_opt)
+        if pend.kind == "gba":
+            # the tracker rides A too: T' = T A^-1
+            R_A, t_A = anchor_correction(m_live, pend.m_opt)
+            Rn = self.R_cur @ R_A.T
+            self._set_pose(Rn, self.t_cur - Rn @ t_A)
+            self.R_prev = self.R_prev @ R_A.T
+            self.t_prev = self.t_prev - self.R_prev @ t_A
+            self.has_velocity = False
+            if hasattr(self, "frame_prior"):      # inertial tracker state
+                self.frame_prior = None
+                self.vel = R_A @ self.vel
+                self.last_body = self._cam_to_body(self.R_cur, self.t_cur)
+                self._map_updated = True
+            self._refresh_view()
+            return
+        self._post_ba_stages(pend.ki, pend.ff, pend.ts, _row(self.bank.kp_pt, pend.ki))
+
+    def _drain_pending(self) -> None:
+        """Force-merge until nothing is pending: a "kf" merge's stages can
+        close a loop and post the post-loop GBA, which is absorbed too."""
+        while self._pending is not None:
+            self._merge_pending(force=True)
+
+    def _schedule_gba(self, ki: int) -> None:
+        """Post the full-map GBA as the pending chain (reference
+        LoopClosing::RunGlobalBundleAdjustment's detached thread)."""
+        if not self.cfg.post_loop_gba:
+            return
+        self._post_chain(lambda m, bank: gba(self.cfg, self.cam_params, m, ki, bank),
+                         ki, "gba", (self.map, self.bank))
 
     def _window_ba(self):
         """The keyframe step's window BA as `kf_step` takes it: None, the
@@ -644,6 +865,8 @@ class System:
         database (upstream Tracking::Relocalization; the fork resets
         instead; both are kept, the reset after `reloc_patience` frames).
         Returns True if the frame was recovered or patience remains."""
+        # relocalize against the best map there is
+        self._drain_pending()
         # lost: widen to the full-capacity view (the local view was built
         # around a keyframe we may no longer be near); the next keyframe
         # insertion rebuilds it
@@ -679,6 +902,7 @@ class System:
         self._archive_and_new_map()
 
     def _archive_and_new_map(self):
+        self._drain_pending()   # archive the optimized map
         db = None
         if self.loop_closer is not None:
             # the database goes with its map; the new map starts an empty one
@@ -703,6 +927,7 @@ class System:
     def activate_localization_mode(self) -> None:
         """Track against the frozen map; no keyframes, no mapping
         (reference System::ActivateLocalizationMode)."""
+        self._drain_pending()
         self.localization_only = True
 
     def deactivate_localization_mode(self) -> None:
@@ -720,8 +945,9 @@ class System:
         return self.state
 
     def shutdown(self) -> None:
-        """Reference System::Shutdown.  The synchronous system has no
-        pending work and no threads: waits for the device's queue."""
+        """Reference System::Shutdown: absorbs the pending chain (there are
+        no threads to join) and waits for the device's queue."""
+        self._drain_pending()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 

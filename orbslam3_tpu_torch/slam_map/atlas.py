@@ -4,8 +4,8 @@ tracking loss or a timestamp anomaly.
 Counterpart of `MapSession`, `Atlas.store_session` and `n_maps` of
 `orbslam3_tpu/slam_map/atlas.py` (parity target: reference Atlas,
 include/Atlas.h:42-128, src/Atlas.cc:47 CreateNewMap, which keeps the old
-map).  Transforming and merging stored maps belongs to loop closing and map
-merging and is not ported yet.
+map).  Transforming and merging stored maps belongs to map merging
+(ROADMAP queue 1 item 5) and is not ported yet.
 
 A `MapSession` holds the map and its feature bank: the port keeps every
 keyframe's features and bindings in the bank only, where the JAX `System`

@@ -1,8 +1,9 @@
 """Map state as fixed-capacity SoA tensors.
 
-Counterpart of `orbslam3_tpu/slam_map/state.py` for what tracking and the
-keyframe step need: the containers, the append ops, the incidence and
-covisibility queries, the local view, point culling and slot compaction.
+Counterpart of `orbslam3_tpu/slam_map/state.py` for what tracking, the
+keyframe step and loop closing need: the containers, the append ops (the
+persistent loop edges among them), the incidence and covisibility queries,
+the local view, point culling and slot compaction.
 
 Functions return a new MapState (as in JAX) and leave their input
 untouched.  Descriptors are int32 bit patterns (see `ops/brief.py`);
@@ -234,6 +235,20 @@ def add_points(m: MapState, xyz, desc, normal, min_dist, max_dist,
         n_pt=torch.clamp_max(base + torch.sum(vi), P).to(torch.int32),
     )
     return m, torch.where(write, dst, -1)
+
+
+def add_loop_edge(m: MapState, i, j, R, t, s) -> MapState:
+    """Persist one measured Sim3 loop/merge edge x_i = s R x_j + t
+    (reference KeyFrame::AddLoopEdge / AddMergeEdge, include/KeyFrame.h:86-101)
+    in slot n_loop.  At capacity (n_loop = L) the write is dropped, as JAX
+    drops an out-of-range `.at[].set`, and n_loop saturates at L."""
+    L = m.loop_i.shape[0]
+    e = m.n_loop
+    return m._replace(
+        loop_i=_set_at(m.loop_i, e, i), loop_j=_set_at(m.loop_j, e, j),
+        loop_R=_set_at(m.loop_R, e, R), loop_t=_set_at(m.loop_t, e, t),
+        loop_s=_set_at(m.loop_s, e, s), loop_valid=_set_at(m.loop_valid, e, True),
+        n_loop=torch.clamp_max(e + 1, L))
 
 
 def add_observations(m: MapState, kf_idx, pt_idx, uv, octave,

@@ -38,7 +38,7 @@ from torch.func import vmap
 
 from ..ops import cameras, lie
 from . import robust
-from .ba import _chol3, _spd_inv3
+from .ba import _add_blocks, _chol3, _pcg, _seg_sum, _spd_inv3
 from .inertial import PreintFactor, factor_residual, info_from_cov, jacobian
 
 STATE_DIM = 15  # [dtheta(3), dp(3), dv(3), dbg(3), dba(3)]
@@ -179,47 +179,9 @@ def _inertial_terms(prob: VIProblem, Rwb, pwb, vel, bias):
     return r, Ji, Jj, W, w_edge, ends[1][3] - ends[0][3], Wb
 
 
-def _seg_sum(n: int, idx, vals):
-    """zeros(n, ...).at[idx].add(vals)."""
-    return torch.zeros((n,) + vals.shape[1:], dtype=vals.dtype,
-                       device=vals.device).index_add_(0, idx.long(), vals)
-
-
-def _add_blocks(S, ki, kj, X, lo: int = 0):
-    """S.at[ki, lo:lo+d, kj, lo:lo+d].add(X) on S (K, D, K, D), X (F, d, d);
-    the rows of repeated (ki, kj) pairs accumulate."""
-    K, D = S.shape[0], S.shape[1]
-    d = X.shape[-1]
-    a = torch.arange(lo, lo + d, device=S.device)
-    row = ki.long()[:, None] * D + a[None, :]                  # (F, d)
-    col = kj.long()[:, None] * D + a[None, :]
-    flat = row[:, :, None] * (K * D) + col[:, None, :]         # (F, d, d)
-    S.view(-1).index_add_(0, flat.reshape(-1), X.reshape(-1))
-    return S
-
-
 def _corner(X):
     """(F, 6, 6) bias blocks as (F, 15, 15) blocks at [9:15, 9:15]."""
     return torch.nn.functional.pad(X, (9, 0, 9, 0))
-
-
-def _pcg(matvec, precond, rhs, iters: int):
-    """Preconditioned CG from 0 with the JAX package's guarded steps."""
-    x = torch.zeros_like(rhs)
-    r = rhs
-    z = precond(r)
-    p = z
-    for _ in range(iters):
-        Ap = matvec(p)
-        rz = torch.sum(r * z)
-        den = torch.sum(p * Ap)
-        al = rz / torch.where(torch.abs(den) < 1e-20, 1e-20, den)
-        x = x + al * p
-        r = r - al * Ap
-        z = precond(r)
-        be = torch.sum(r * z) / torch.where(torch.abs(rz) < 1e-20, 1e-20, rz)
-        p = z + be * p
-    return x
 
 
 def _robust_cost(chi2, m, rob: bool):

@@ -2,6 +2,7 @@
 
     python -m orbslam3_tpu_torch.utils.profile_keyframe [--frames 12] [--out DIR]
     python -m orbslam3_tpu_torch.utils.profile_keyframe --inertial [--out DIR]
+    python -m orbslam3_tpu_torch.utils.profile_keyframe --async [--out DIR]
 
 Seeds the default-size scene (`seeded_scene.SceneConfig()`), runs the drive
 once to warm up, then profiles it again over `--frames` tracked frames
@@ -24,12 +25,28 @@ keyframe frame), with the inertial stages as ranges: `preintegrate`,
 `insert_kf`, `local_ba`, `vi_bundle_adjust`, `inertial_only_init`,
 `post_ba_stages`.  Prints the range table per kind and writes it to
 `DIR/inertial_profile.json`.
+
+`--async` compares phase 6 of `chip_smoke.py` (bench.py's 78 frames through
+`System.track_monocular`) synchronous, with `async_mapping`, and with
+`async_mapping` and `enable_loop_closing` (phase 9a), `--rounds` times in
+alternating order (sync, async, async + loop closing, then backwards).  Each drive
+synchronises after every frame, as `seeded_scene.drive_system` does, and
+times every frame on the host clock; then one drive per mode runs again,
+unsynchronised, for its wall time alone; then one drive per mode with every
+frame under the profiler (CUDA activity) and
+`torch.cuda.set_sync_debug_mode("warn")`.  Prints, per mode and frame kind
+(tracked frame, tracked frame that merged the pending chain at its poll,
+keyframe frame), the frames, the host-clock median of each timed drive, and
+the profiled drive's median kernels, device ms and blocking reads; writes it
+to `DIR/async_profile.json`.
 """
 
 from __future__ import annotations
 
 import argparse
 import bisect
+import collections
+import contextlib
 import dataclasses
 import functools
 import json
@@ -273,6 +290,96 @@ def profile_inertial(dev, out_dir: str, card: str) -> dict:
     return result
 
 
+ASYNC_MODES = {"sync": {}, "async": dict(async_mapping=True),
+               "async + loop closing": dict(async_mapping=True, enable_loop_closing=True)}
+
+
+def _async_drive(cfg, frames, dev, mode: str, per_frame_sync=True, profiled=False):
+    """One drive of phase 6's frames; per frame (kind, host ms, kernels,
+    device ms, blocking reads' call sites), the last three with `profiled`
+    only.  Returns (records, wall seconds)."""
+    import torch
+    from ..pipeline import system
+    from . import seeded_scene as scene
+    from .sync_census import _sync_warnings
+
+    sys_ = system.System(dataclasses.replace(scene.system_config(cfg), **ASYNC_MODES[mode]),
+                         device=dev, seed=42)
+    sync = torch.cuda.synchronize
+    recs = []
+    sync()
+    wall0 = time.perf_counter()
+    for fi in cfg.track_frames:
+        was, n_kf = sys_.state, sys_.n_kf_host
+        polled = sys_.chain_counts["merged kf at a poll"]
+        if per_frame_sync:
+            sync()
+        work = DeviceWork() if profiled else contextlib.nullcontext()
+        found = []
+        t0 = time.perf_counter()
+        with work:
+            with _sync_warnings(found) if profiled else contextlib.nullcontext():
+                sys_.track_monocular(frames[fi], fi / 10.0)
+            if per_frame_sync:
+                sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        if was != system.OK:
+            kind = "initialization"
+        elif sys_.n_kf_host > n_kf:
+            kind = "keyframe frame"
+        elif sys_.chain_counts["merged kf at a poll"] > polled:
+            kind = "tracked frame, merged at its poll"
+        else:
+            kind = "tracked frame"
+        recs.append((kind, ms, work.launches if profiled else None,
+                     work.device_ms if profiled else None, found))
+    sys_.shutdown()
+    return recs, time.perf_counter() - wall0
+
+
+def profile_async(dev, out_dir: str, card: str, rounds: int = 3) -> dict:
+    """Phase 6's drive in each of `ASYNC_MODES`, timed, unsynchronised and
+    profiled (see the module's docstring)."""
+    import statistics
+
+    from . import seeded_scene as scene
+
+    cfg = dataclasses.replace(scene.SceneConfig(), seed_frames=(), track_frames=tuple(range(78)))
+    frames = scene.render_frames(cfg)
+    modes = tuple(ASYNC_MODES)
+    _async_drive(cfg, frames, dev, "sync")          # warm-up
+    timed = {m: [] for m in modes}
+    for r in range(rounds):
+        for mode in (modes if r % 2 == 0 else modes[::-1]):
+            timed[mode].append(_async_drive(cfg, frames, dev, mode)[0])
+    wall = {m: _async_drive(cfg, frames, dev, m, per_frame_sync=False)[1] * 1e3 for m in modes}
+    prof = {m: _async_drive(cfg, frames, dev, m, profiled=True)[0] for m in modes}
+    med = statistics.median
+    print(f"card: {card}")
+    result = {"card": card, "wall_ms_unsynchronised": wall, "modes": {}}
+    for mode in modes:
+        print(f"{mode}: 78 frames in {wall[mode]:.1f} ms without a per-frame sync")
+        kinds = {}
+        for kind in dict.fromkeys(r[0] for r in prof[mode]):
+            runs = [[r[1] for r in recs if r[0] == kind] for recs in timed[mode]]
+            p = [r for r in prof[mode] if r[0] == kind]
+            row = dict(frames=[len(x) for x in runs], host_ms=[med(x) for x in runs if x],
+                       launches=med(r[2] for r in p), device_ms=med(r[3] for r in p),
+                       reads=med(len(r[4]) for r in p),
+                       read_sites=collections.Counter(x for r in p for x in r[4]))
+            kinds[kind] = row
+            print(f"  {kind}: frames {row['frames']}, host-clock medians "
+                  + " / ".join(f"{x:.1f}" for x in row["host_ms"]) +
+                  f" ms; profiled median {row['launches']} kernels, {row['device_ms']:.2f} ms "
+                  f"of device time, {row['reads']} blocking reads; sites over its "
+                  f"{len(p)} frames: {dict(row['read_sites'])}")
+        result["modes"][mode] = kinds
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "async_profile.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    return result
+
+
 def main() -> int:
     import torch
     from . import seeded_scene as scene
@@ -281,6 +388,8 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=12)
     ap.add_argument("--out", default="profile_out")
     ap.add_argument("--inertial", action="store_true")
+    ap.add_argument("--async", dest="async_", action="store_true")
+    ap.add_argument("--rounds", type=int, default=3)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -289,6 +398,9 @@ def main() -> int:
                           check=True).stdout.strip().splitlines()[0]
     if args.inertial:
         profile_inertial(torch.device("cuda", 0), args.out, card)
+        return 0
+    if args.async_:
+        profile_async(torch.device("cuda", 0), args.out, card, args.rounds)
         return 0
     cfg = dataclasses.replace(scene.SceneConfig(),
                               track_frames=tuple(range(19, 19 + args.frames)))

@@ -397,11 +397,14 @@ class SystemDrive(NamedTuple):
     init_frame: int    # position in `frames` of the initialising frame, -1 if none
 
 
-def drive_system(cfg: SceneConfig, frames: dict, device, seed: int = 42):
+def drive_system(cfg: SceneConfig, frames: dict, device, seed: int = 42, **overrides):
     """Feed cfg.track_frames, as uint8 images with ts = i / 10, to a fresh
     `System` through `track_monocular` and nothing else (`device` None: the
-    System's default, the card).  Returns (System, SystemDrive)."""
-    sys_ = system.System(system_config(cfg), device=device, seed=seed)
+    System's default, the card); `overrides` replace fields of its
+    `system_config` (async_mapping, enable_loop_closing, ...).  Returns
+    (System, SystemDrive)."""
+    sys_ = system.System(dataclasses.replace(system_config(cfg), **overrides), device=device,
+                         seed=seed)
     sync = _sync_fn(device)
     d = SystemDrive([], [], [], [], [], -1)
     init_frame = -1

@@ -15,6 +15,10 @@ tracking failed and the database had no candidate, relocalization attempt: a
 batch of candidates was evaluated), and where in the package each comes
 from.
 
+The default run then counts one loop closure, kind "loop closure": the
+reads of `LoopCloser.try_close` on `loop_scene`'s drifted revisit at the
+default capacity (1200-keypoint frames), from detection to the posted GBA.
+
 `--inertial` counts the mono-inertial System's frames instead, on
 `imu_scene`'s drive (its first `--frames` frames, 128 by default), grouped
 by `imu_scene.frame_kind`: before the IMU initialization the tracked frame
@@ -146,6 +150,23 @@ def inertial_census(dev, n_frames: int) -> dict:
     return kinds
 
 
+def loop_census(dev) -> dict:
+    """{"loop closure": (1, Counter of sites -> reads)} of one
+    `try_close` on `loop_scene`'s drifted revisit at the default capacity."""
+    from ..pipeline import system
+    from . import loop_scene
+
+    sys_ = system.System(system.SlamConfig(cam_params=loop_scene.K4, image_hw=(480, 752),
+                                           enable_relocalization=False), device=dev)
+    rv = loop_scene.build(sys_, n_kp=1200)
+    lc = loop_scene.loop_closer(sys_, rv.kr)
+    found: list = []
+    with _sync_warnings(found):
+        if not lc.try_close(sys_, rv.ff, rv.kr):
+            raise RuntimeError("the loop scene did not close")
+    return {"loop closure": [1, collections.Counter(found)]}
+
+
 def main() -> int:
     import torch
     from . import seeded_scene as scene
@@ -166,6 +187,7 @@ def main() -> int:
         cfg = dataclasses.replace(scene.SceneConfig(), seed_frames=(),
                                   track_frames=tuple(range(args.frames or 40)))
         kinds = census(cfg, scene.render_frames(cfg), dev)
+        kinds.update(loop_census(dev))
     print(f"card: {card}")
     for kind, (n, sites) in kinds.items():
         print(f"{kind}: {n} frames, {sum(sites.values()) / n:.2f} blocking reads per frame")

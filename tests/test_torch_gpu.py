@@ -1,7 +1,8 @@
 """The ORB patch kernels (CUDA, sm_90a) against their plain PyTorch twins, the
 keyframe step on the card against the same step on the CPU, the `System`
 from raw frames on the card, the 65536-word vocabulary and a relocalization
-on the card.
+on the card, the VI BA, the COO BA and the post-loop GBA, and a loop
+closure on the card against the CPU.
 
 These need an NVIDIA GPU with nvcc and are marked `gpu`; without a card they
 skip.  With a GPU: `python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest`
@@ -314,3 +315,117 @@ def test_vi_bundle_adjust_on_the_card_matches_the_cpu(dev):
             np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4, err_msg=name)
         rel = (got.X.cpu() - ref.X).abs().max() / ref.X.abs().max()
         assert float(rel) < 1e-3
+
+
+def _coo_problem(seed=0, K=6, n_pts=150):
+    """A COO BA problem made with numpy: K cameras along x (the first two
+    fixed), n_pts points, 0.5 px noise, poses and points perturbed."""
+    from orbslam3_tpu_torch.ops import lie
+    from orbslam3_tpu_torch.solver import ba
+    rng = np.random.default_rng(seed)
+    K4 = torch.tensor([458.654, 457.296, 367.215, 248.375])
+    X = np.stack([rng.uniform(-3, 3, n_pts), rng.uniform(-2, 2, n_pts),
+                  rng.uniform(5, 9, n_pts)], 1).astype(np.float32)
+    R = lie.exp_so3(torch.from_numpy(rng.normal(0, 0.02, (K, 3)).astype(np.float32)))
+    t = torch.from_numpy(np.stack([[-0.3 * k, 0.0, 0.0] for k in range(K)]).astype(np.float32))
+    Xc = torch.einsum("kij,pj->kpi", R, torch.from_numpy(X)) + t[:, None]
+    uv = K4[:2] * Xc[..., :2] / Xc[..., 2:] + K4[2:] + \
+        torch.from_numpy(rng.normal(0, 0.5, (K, n_pts, 2)).astype(np.float32))
+    dR, dt = lie.se3_exp(torch.from_numpy(rng.normal(0, 0.01, (K, 6)).astype(np.float32)))
+    Rp, tp = lie.se3_compose(dR, dt, R, t)
+    fixed = torch.arange(K) < 2
+    prob = ba.BAProblem(
+        R=torch.where(fixed[:, None, None], R, Rp), t=torch.where(fixed[:, None], t, tp),
+        cam_fixed=fixed, cam_valid=torch.ones(K, dtype=torch.bool),
+        X=torch.from_numpy(X + rng.normal(0, 0.03, X.shape).astype(np.float32)),
+        pt_valid=torch.ones(n_pts, dtype=torch.bool),
+        obs_cam=torch.arange(K).repeat_interleave(n_pts), obs_pt=torch.arange(n_pts).repeat(K),
+        obs_uv=uv.reshape(-1, 2), obs_inv_sigma2=torch.ones(K * n_pts),
+        obs_valid=torch.ones(K * n_pts, dtype=torch.bool))
+    return prob, K4
+
+
+def _loop_system(device, cap):
+    from orbslam3_tpu_torch.utils import loop_scene
+    cfg = system.SlamConfig(cam_params=loop_scene.K4, image_hw=(480, 752),
+                            enable_relocalization=False, local_view_points=2048,
+                            map_capacity=MapCapacity(**cap))
+    sys_ = system.System(cfg, device=device)
+    return sys_, loop_scene.build(sys_, n_kp=256)
+
+
+def test_coo_bundle_adjust_and_gba_on_the_card_match_the_cpu(dev):
+    """The COO bundle adjuster (PCG and dense Schur, 4 LM steps) and the
+    post-loop `gba` (capacity-wide temporal window from the bank, PCG) at 32
+    keyframes / 4096 points / 16384 observations on the loop scene: the card
+    against the CPU, poses within 1e-4 and points within 1e-3 relative."""
+    from orbslam3_tpu_torch.solver import ba
+    prob, K4 = _coo_problem()
+    mv = lambda p: type(p)(*(None if x is None else x.to(dev) for x in p))
+    for solver in ("pcg", "dense"):
+        ref = ba.bundle_adjust(prob, "pinhole", K4, iterations=4, schur_solver=solver)
+        got = ba.bundle_adjust(mv(prob), "pinhole", K4.to(dev), iterations=4,
+                               schur_solver=solver)
+        for a, b in zip(got[:2], ref[:2]):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4)
+        assert float((got.X.cpu() - ref.X).abs().max() / ref.X.abs().max()) < 1e-3
+    cap = dict(n_kf=32, n_pt=4096, n_obs=16384)
+    cpu, rv = _loop_system("cpu", cap)
+    card, _ = _loop_system(dev, cap)
+    ref = system.gba(cpu.cfg, cpu.cam_params, cpu.map, rv.kr, cpu.bank)
+    got = system.gba(card.cfg, card.cam_params, card.map, rv.kr, card.bank)
+    assert got.kf_R.device == dev
+    np.testing.assert_allclose(got.kf_t.cpu().numpy(), ref.kf_t.numpy(), atol=1e-4)
+    np.testing.assert_allclose(got.kf_R.cpu().numpy(), ref.kf_R.numpy(), atol=1e-4)
+    assert float((got.pt_xyz.cpu() - ref.pt_xyz).abs().max() / ref.pt_xyz.abs().max()) < 1e-3
+
+
+def test_try_close_on_the_card_matches_the_cpu(dev):
+    """The drifted revisit closed on the card and on the CPU with the same
+    Sim3 samples (`loop_scene.fixed_samples`): the same winner, matches and
+    inliers, keyframe poses and points within 1e-3; on the card the
+    revisit's centre back within 0.15 of the origin, the GBA posted on the
+    side stream and merged by a forced merge, every point finite after it,
+    and the merged map held to the same GBA run on the CPU from the inputs
+    the side stream read, in what a GBA determines: every observation's
+    projection within 0.02 px, points within 1e-4 of the map's extent,
+    keyframe 0's and the revisit's poses within 1e-4 (each exploring
+    keyframe sees only its own points and is free to move with them:
+    measured up to 3e-3 apart).  The CPU copy's own GBA starts from its own
+    closure and is held to its gate only."""
+    from orbslam3_tpu_torch.utils import loop_scene
+    cap = dict(n_kf=32, n_pt=4096, n_obs=16384)
+    out = {}
+    for device in ("cpu", dev):
+        sys_, rv = _loop_system(device, cap)
+        lc = loop_scene.loop_closer(sys_, rv.kr)
+        assert lc.try_close(sys_, rv.ff, rv.kr, idx_fn=loop_scene.fixed_samples)
+        out[str(device)] = (sys_, lc.last_closure)
+    (c, cc), (g, gc) = out["cpu"], out[str(dev)]
+    assert cc == gc and cc["cand"] == 0
+    np.testing.assert_allclose(g.map.kf_R.cpu().numpy(), c.map.kf_R.numpy(), atol=1e-3)
+    np.testing.assert_allclose(g.map.kf_t.cpu().numpy(), c.map.kf_t.numpy(), atol=1e-3)
+    assert float((g.map.pt_xyz.cpu() - c.map.pt_xyz).abs().max()) < 1e-3
+    m = g.map
+    kr = 15
+    assert float(torch.linalg.norm(-m.kf_R[kr].T @ m.kf_t[kr])) < 0.15
+    assert g._pending is not None and g._pending.done is not None
+    m_in, bank_in = (type(x)(*(y.cpu() for y in x)) for x in g._pending.inputs)
+    g._merge_pending(force=True)
+    c._merge_pending(force=True)
+    assert g._pending is None and g.chain_counts["merged gba forced"] == 1
+    assert c._pending is None and c.chain_counts["merged gba forced"] == 1
+    assert bool(torch.isfinite(g.map.pt_xyz).all())
+    ref = system.gba(c.cfg, c.cam_params, m_in, kr, bank_in)
+    got = type(g.map)(*(x.cpu() for x in g.map))
+    assert torch.equal(got.pt_valid, ref.pt_valid)
+    (uv_g, meas_g), (uv_r, meas_r) = map(loop_scene.reprojections, (got, ref))
+    assert torch.equal(meas_g, meas_r) and float((uv_g - uv_r).abs().max()) < 0.02
+    for k in (0, kr):
+        np.testing.assert_allclose(got.kf_R[k].numpy(), ref.kf_R[k].numpy(), atol=1e-4)
+        np.testing.assert_allclose(got.kf_t[k].numpy(), ref.kf_t[k].numpy(), atol=1e-4)
+    ok = ref.pt_valid
+    assert float((got.pt_xyz[ok] - ref.pt_xyz[ok]).abs().max()
+                 / ref.pt_xyz[ok].abs().max()) < 1e-4
+    assert float(torch.linalg.norm(-c.map.kf_R[kr].T @ c.map.kf_t[kr])) < 0.15
+    assert float(torch.linalg.norm(-g.map.kf_R[kr].T @ g.map.kf_t[kr])) < 0.15

@@ -22,10 +22,14 @@ import pytest
 import torch
 
 import torch_parity_helpers as H
+from orbslam3_tpu.ops import imu as jimu
+from orbslam3_tpu.ops import lie as jlie
 from orbslam3_tpu.pipeline import inertial_system as jis
 from orbslam3_tpu.pipeline import system as jsystem
+from orbslam3_tpu.slam_map import feature_bank as jbank
 from orbslam3_tpu.slam_map import state as jstate
 from orbslam3_tpu.solver import inertial as jinertial
+from orbslam3_tpu.solver import vi_pose_opt as jvpo
 from orbslam3_tpu_torch.pipeline import inertial_system as tis
 from orbslam3_tpu_torch.pipeline import system as tsystem
 from orbslam3_tpu_torch.slam_map import convert
@@ -142,10 +146,68 @@ def jax_run():
     return rec
 
 
-def _loaded(snap):
-    tsys = _tsys()
+def _loaded(snap, Tbc=()):
+    tsys = _tsys() if not Tbc else tis.InertialSystem(
+        tsystem.SlamConfig(map_capacity=MapCapacity(**CAP), **COMMON),
+        tis.InertialConfig(**ICOMMON, Tbc=Tbc), device="cpu")
     H.load_inertial_snapshot(snap, tsys)
     return tsys
+
+
+def _jax_loaded(snap, Tbc=()):
+    """A JAX InertialSystem given what `_schedule_gba` and `_merge_pending`
+    read of a snapshot: map, bank, factors, tracker, velocity, bias, prior."""
+    jsys = jis.InertialSystem(jsystem.SlamConfig(map_capacity=jstate.MapCapacity(**CAP), **COMMON),
+                              jis.InertialConfig(**ICOMMON, Tbc=Tbc))
+    jsys.map = jstate.MapState(**{k: jnp.asarray(v) for k, v in snap["map"].items()})
+    jsys.bank = jbank.FeatureBank(**{k: jnp.asarray(v) for k, v in snap["bank"].items()})
+    jsys.preints = [jimu.Preintegrated(**{k: jnp.asarray(v) for k, v in p.items()})
+                    for p in snap["preints"]]
+    jsys.preint_kf_pairs = list(snap["preint_kf_pairs"])
+    for name in ("R_cur", "t_cur", "R_prev", "t_prev", "vel", "bias"):
+        setattr(jsys, name, jnp.asarray(snap[name]))
+    for name in ("last_kf_idx", "n_kf_host", "imu_initialized", "has_velocity"):
+        setattr(jsys, name, snap[name])
+    fp = snap["frame_prior"]
+    jsys.frame_prior = None if fp is None else jvpo.VIPosePrior(
+        **{k: jnp.asarray(v) for k, v in fp.items()})
+    return jsys
+
+
+# a camera-body extrinsic of ~0.1 rad and 7 cm (EuRoC's is not the identity)
+TBC = tuple(np.block([[np.asarray(jlie.exp_so3(jnp.asarray([0.05, -0.07, 0.04]))),
+                       np.array([[0.05], [-0.04], [0.03]])],
+                      [np.zeros((1, 3)), np.ones((1, 1))]]).astype(np.float64).reshape(-1))
+
+
+@pytest.mark.parametrize("Tbc", [(), TBC], ids=["identity", "extrinsic"])
+def test_post_loop_full_inertial_ba_matches_jax(jax_run, Tbc):
+    """After a loop closure on an IMU-initialized map `_schedule_gba` posts
+    the full inertial BA over every factor (on the CPU it runs inline), and
+    the forced "gba" merge carries the tracker: from the JAX system's state
+    after its first inertial keyframe, with the identity extrinsic and with
+    one of ~0.1 rad and 7 cm, the pending map (keyframe poses, velocities
+    and biases within 1e-3, points within 1e-3 of the map's extent) and the
+    merged tracker (pose and velocity within 1e-3, the prior dropped)."""
+    snap = jax_run["kf"]["after"]
+    ki = snap["last_kf_idx"]
+    js, ts = _jax_loaded(snap, Tbc), _loaded(snap, Tbc)
+    js._schedule_gba(ki)
+    ts._schedule_gba(ki)
+    assert ts._pending.kind == "gba" and ts.chain_counts["posted gba"] == 1
+    got, ref = convert.to_numpy(ts._pending.m_opt), H.fields(js._pending[0])
+    k = _valid_kfs(snap)
+    for name in ("kf_R", "kf_t", "kf_vel", "kf_bias"):
+        np.testing.assert_allclose(got[name][k], ref[name][k], atol=1e-3, err_msg=name)
+    p = ref["pt_valid"]
+    assert np.abs(got["pt_xyz"][p] - ref["pt_xyz"][p]).max() < 1e-3 * np.abs(ref["pt_xyz"][p]).max()
+    assert np.abs(ref["kf_t"][k] - snap["map"]["kf_t"][k]).max() > 1e-4     # it moved
+    js._merge_pending(force=True)
+    ts._merge_pending(force=True)
+    for name in ("R_cur", "t_cur", "vel"):
+        np.testing.assert_allclose(getattr(ts, name).numpy(), np.asarray(getattr(js, name)),
+                                   atol=1e-3, err_msg=name)
+    assert ts.frame_prior is None and js.frame_prior is None and ts._map_updated
 
 
 def _valid_kfs(snap):

@@ -323,11 +323,3 @@ def test_refine_vocab_reencodes_the_database_as_jax_does():
     # the unpacked copy follows the codebook
     wj = np.asarray(lcj._bow(feats_j[0].desc, feats_j[0].valid)[1])
     np.testing.assert_array_equal(lct._bow(feats_t[0].desc, feats_t[0].valid)[1].numpy(), wj)
-
-
-def test_the_geometric_half_of_loop_closing_is_refused():
-    lct = tloop.LoopCloser(tloop.LoopConfig(n_words=512, vocab="seed"), 4, "cpu")
-    for call in (lambda: lct.try_close(None, None, 0), lambda: lct._correct_loop(None, 0, 0, None),
-                 lambda: tloop.build_essential_graph(None)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            call()

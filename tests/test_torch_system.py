@@ -366,11 +366,34 @@ def test_localization_mode_and_exports():
 
 
 @pytest.mark.parametrize("flag", [
-    dict(async_mapping=True), dict(enable_loop_closing=True), dict(enable_gnss=True),
-    dict(ba_mesh_shards=2), dict(cam_model="kb8"), dict(stereo_bf=40.0)])
+    dict(enable_gnss=True), dict(ba_mesh_shards=2), dict(cam_model="kb8"),
+    dict(stereo_bf=40.0)])
 def test_flags_of_parts_not_ported_are_refused(flag):
     with pytest.raises(NotImplementedError, match="queue 1 item"):
         tsystem.System(tsystem.SlamConfig(**flag), device="cpu")
+
+
+def test_async_mapping_and_loop_closing_build_a_system():
+    """Both flags build a System: the LoopCloser with the 65536-word
+    database, no pending chain, and on the CPU no side stream (the chain runs
+    inline there)."""
+    small = dataclasses.replace(tsystem.SlamConfig(), map_capacity=MapCapacity(**CAP),
+                                async_mapping=True, enable_loop_closing=True,
+                                enable_relocalization=False)
+    sys_ = tsystem.System(small, device="cpu")
+    assert sys_.loop_closer is not None and sys_.loop_closer.cfg.n_words == 65536
+    assert sys_._pending is None and sys_._side_stream is None and sys_._async_ok
+    assert sys_.map.kf_R.device.type == "cpu"
+
+
+def test_loop_closing_with_a_stored_atlas_session_refuses_map_merging():
+    """With an Atlas session stored, the JAX package tries map merging at the
+    first keyframe (queue 1 item 5, not ported): the port raises there."""
+    sys_ = _booted(n_warm=16, kf_every=1)           # every frame a keyframe
+    sys_.cfg = dataclasses.replace(sys_.cfg, enable_loop_closing=True)
+    sys_.atlas.store_session(sys_.map, sys_.bank, [])
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        _feed(sys_, 16, ts=16 * DT)
 
 
 def test_default_config_builds_the_keyframe_database():
