@@ -4,8 +4,9 @@
 
 Drives the port's main paths, the per-frame monocular step, the synchronous
 keyframe step, the whole `System` from raw frames, its recovery of a lost
-track by relocalization, the mono-inertial `System`, and loop closing with
-the asynchronous keyframe chain, at the JAX package's default monocular configuration (480x752 image, 1200 ORB features over 8
+track by relocalization, the mono-inertial `System`, loop closing with
+the asynchronous keyframe chain, map merging, GNSS georeferencing and the
+checkpoint, at the JAX package's default monocular configuration (480x752 image, 1200 ORB features over 8
 levels, map capacity 256 keyframes / 24576 points / 196608 observations, a
 local view of 8192 points over 12 keyframes; window BA caps 16 / 4096 /
 12288, 6 LM steps over an 8-keyframe window, 4 triangulation neighbours, 768
@@ -125,12 +126,50 @@ new points at most):
      (centre within 0.15).  Then `detect`,
      `solve_sim3`, `optimize_pose_graph` (dense, 256 vertices) and `gba`
      (the capacity-wide PCG, 8 LM steps) are timed alone: CUDA events, and
-     kernels and device time per call from torch.profiler's kernel records.
+     kernels and device time per call from torch.profiler's kernel records;
+ 10. the multi-session Atlas, GNSS georeferencing and the checkpoint
+     (`utils/atlas_scene.py`), each part timed on the host clock: (a)
+     phase 6's configuration and frames with `enable_loop_closing`, frames
+     30-33 a uniform gray image and relocalization switched off on the
+     instance (as tests/test_map_merge.py does), so that the occlusion
+     resets the map into the Atlas; the second map's keyframes see the
+     first's ground and one of them welds it in (`map_merging.try_merge`,
+     its Sim3 samples from `loop_scene.fixed_samples`).  Gates: a reset,
+     the session consumed, OK from the merge on, at least 2 valid keyframes
+     of each session, the merged trajectory over more than 70% of the
+     frames with an ATE below 0.08 of the span, the merge edge persisted,
+     map, bank and database on the card; the merging keyframe's
+     `try_merge` again on a CPU copy of the state it found, with the same
+     samples: the same session, candidate, matches, inliers and offsets,
+     the Sim3 and the keyframe poses within 1e-3, every integer field of
+     the map and the bank and the database's keyframes equal.  Then that
+     `try_merge` on the card alone: its stages by CUDA events (the
+     database query, `match_nn`, `solve_sim3`, `merge_maps` with the bank
+     splice, the welding BA, the database rebuild), kernels and device ms
+     of the whole (torch.profiler), its blocking reads.  (b) the same
+     frames without the gap, a GNSS fix before each (the true camera
+     centre in a geo frame at scale 7, 0.8 rad about z and offset (4.5e6,
+     1.1e6, 320), N(0, 0.02) noise from a seeded generator) with
+     tests/test_gnss.py's settings: the georeference initialized, GNSS BAs
+     posted and every one merged, no reset, every pose finite, the geo
+     trajectory within an RMSE of 0.5 of the true geo track; the first
+     GNSS BA again on the CPU from its inputs: keyframe centres within
+     1e-3 of the map's extent; the GNSS stage by CUDA events, the GNSS BA
+     alone by events and its kernels and device ms, blocking reads per
+     frame kind (`profile_keyframe.atlas_frame_kind`).  (c) (a)'s merged
+     System saved (`slam_map/checkpoint.py`) and loaded into a fresh
+     System on the card and one on the CPU: the maps, banks and databases
+     equal; 12 more frames of the path on the card with no reset and no
+     keyframe slot overwritten; a frame from frame 10's viewpoint
+     relocalized by a third System loaded on the card, within 0.05 world
+     units of its pose.  `orb_describe`'s counter equal to the 169 frames
+     extracted (78 + 78 + 12 + 1).
 
 Each phase prints one line (phase 6 three more before it, phase 7 four more
 after it: kernels per call and device time of `add_keyframe` and of the two
 halves of an attempt, from torch.profiler's kernel records; phase 8 one per
 frame kind after it; phase 9 one per part, one per timed stage and its
+total; phase 10 one per part, 10a's stages and read sites after it, and its
 total); the kernels' JSON
 line and the card's line precede the last line, `{"ok": true, "device":
 {...}}`.  Any failure raises and exits non-zero before it.
@@ -138,8 +177,11 @@ line and the card's line precede the last line, `{"ok": true, "device":
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -166,6 +208,35 @@ def _event_ms(fn, runs: int = 50) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _to(x, device):
+    """A NamedTuple of tensors on `device`."""
+    return type(x)(*(y.to(device) for y in x))
+
+
+def _events(store, fn):
+    """fn, with a pair of CUDA events around each call kept in `store` (on
+    the CPU, host-clock seconds instead)."""
+    import torch
+
+    def wrapper(*a, **kw):
+        if not torch.cuda.is_available():
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            store.append(time.perf_counter() - t0)
+            return out
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*a, **kw)
+        end.record()
+        store.append((start, end))
+        return out
+    return wrapper
+
+
+def _ms(store) -> list:
+    return [x * 1e3 if isinstance(x, float) else x[0].elapsed_time(x[1]) for x in store]
 
 
 def mapping_phase(cfg, dev) -> dict:
@@ -400,28 +471,17 @@ def inertial_phase(dev) -> dict:
     frames = scene.render_frames(cfg)
     render_s = time.perf_counter() - t0
 
-    def timed(store, fn):
-        """fn, with a pair of CUDA events around each call kept in store."""
-        def wrapper(*a, **kw):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*a, **kw)
-            end.record()
-            store.append((start, end))
-            return out
-        return wrapper
-
     ev = {"init_solve": [], "fiba": [], "window_ba": [], "imu_stage": []}
     reint = []        # per IMU stage, the reintegrations' events
     solve = inertial_solver.inertial_only_init
-    inertial_solver.inertial_only_init = timed(ev["init_solve"], solve)
+    inertial_solver.inertial_only_init = _events(ev["init_solve"], solve)
     profiled, kinds_seen = {}, {}
 
     def wrap(i, sys_):
         if i == 0:
             # the System's own methods, timed (instance attributes)
-            sys_._vi_ba_dispatch = timed(ev["window_ba"], sys_._vi_ba_dispatch)
-            sys_._full_ba = timed(ev["fiba"], sys_._full_ba)
+            sys_._vi_ba_dispatch = _events(ev["window_ba"], sys_._vi_ba_dispatch)
+            sys_._full_ba = _events(ev["fiba"], sys_._full_ba)
             stage = sys_._initialize_imu
             raw = sys_._preint_raw
             in_stage = []
@@ -430,12 +490,12 @@ def inertial_phase(dev) -> dict:
                 in_stage.append(1)
                 reint.append([])
                 try:
-                    return timed(ev["imu_stage"], stage)(*a, **kw)
+                    return _events(ev["imu_stage"], stage)(*a, **kw)
                 finally:
                     in_stage.clear()
 
             sys_._initialize_imu = stage_spy
-            sys_._preint_raw = lambda *a: (timed(reint[-1], raw) if in_stage else raw)(*a)
+            sys_._preint_raw = lambda *a: (_events(reint[-1], raw) if in_stage else raw)(*a)
         kind = scene.expected_kind(sys_, i)
         if kind is None or kind in profiled or i < 10:
             return None
@@ -469,8 +529,8 @@ def inertial_phase(dev) -> dict:
     if bad:
         _fail("inertial gates failed: " + "; ".join(bad))
     torch.cuda.synchronize()
-    ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in ev.items()}
-    ms["reintegrate"] = [sum(a.elapsed_time(b) for a, b in v) for v in reint]
+    ms = {k: _ms(v) for k, v in ev.items()}
+    ms["reintegrate"] = [sum(_ms(v)) for v in reint]
     ms["reintegrated"] = [len(v) for v in reint]
     prof_frames = {w.frame for w in profiled.values()}
     per_kind = {}
@@ -732,6 +792,369 @@ def print_loop(lp: dict, st6: dict) -> None:
     for name, t in lp["parts"].items():
         print(f"  {name}: {t['ms']:.3f} ms (CUDA events), {t['launches']} kernels, "
               f"{t['device_ms']:.3f} ms of device time", flush=True)
+
+
+def _merge_system(snap: dict, device):
+    """A System on `device` in the state the merging keyframe's `try_merge`
+    found (`snap`, recorded by `merge_phase`)."""
+    from orbslam3_tpu_torch.pipeline import system
+    from orbslam3_tpu_torch.slam_map import atlas
+    s = system.System(snap["cfg"], device=device)
+    s.map, s.bank = _to(snap["map"], device), _to(snap["bank"], device)
+    s.n_kf_host, s.last_kf_idx = snap["n_kf"], snap["ki"]
+    s.trajectory = list(snap["trajectory"])
+    s.atlas.sessions = [atlas.MapSession(_to(x.map, device), _to(x.bank, device),
+                                         list(x.trajectory), _to(x.db, device))
+                        for x in snap["sessions"]]
+    s.loop_closer.db = _to(snap["db"], device)
+    s._set_pose(snap["R"].to(device), snap["t"].to(device))
+    s.R_prev, s.t_prev = s.R_cur, s.t_cur
+    return s, _to(snap["ff"], device)
+
+
+def merge_phase(scfg, frames, dev) -> dict:
+    """Phase 10a: bench.py's 78 frames with frames 30-33 blank and
+    `enable_loop_closing` (`atlas_scene.drive_merge`), the merge's Sim3
+    samples from `loop_scene.fixed_samples`; then the merging keyframe's
+    `try_merge` again from the state it found, on a CPU copy (the same
+    outcome) and on the card (stages by CUDA events, kernels and device ms
+    under the profiler, blocking reads).  Raises on a failed gate."""
+    import numpy as np
+    import torch
+    from orbslam3_tpu_torch.geometry import sim3solver
+    from orbslam3_tpu_torch.ops import matching
+    from orbslam3_tpu_torch.pipeline import map_merging
+    from orbslam3_tpu_torch.place import keyframe_db as kdb
+    from orbslam3_tpu_torch.slam_map import atlas
+    from orbslam3_tpu_torch.slam_map import feature_bank as fb
+    from orbslam3_tpu_torch.utils import atlas_scene, loop_scene, profile_keyframe, sync_census
+
+    run = map_merging.try_merge
+    seen = {}
+
+    def spy(sys_, ff, ki, **kw):
+        snap = dict(cfg=sys_.cfg, map=sys_.map, bank=sys_.bank, n_kf=sys_.n_kf_host, ki=ki,
+                    trajectory=list(sys_.trajectory), db=sys_.loop_closer.db, ff=ff,
+                    sessions=[atlas.MapSession(x.map, x.bank, list(x.trajectory), x.db)
+                              for x in sys_.atlas.sessions], R=sys_.R_cur, t=sys_.t_cur)
+        t0 = time.perf_counter()
+        out = run(sys_, ff, ki, idx_fn=loop_scene.fixed_samples)
+        if out:
+            seen.update(snap=snap, host_ms=(time.perf_counter() - t0) * 1e3,
+                        after=(sys_.map, sys_.bank, sys_.loop_closer.db, dict(sys_.last_merge)))
+        seen["attempts"] = seen.get("attempts", 0) + 1
+        return out
+
+    map_merging.try_merge = spy
+    t0 = time.perf_counter()
+    try:
+        sys_, d = atlas_scene.drive_merge(scfg, frames, dev)
+    finally:
+        map_merging.try_merge = run
+    drive_s = time.perf_counter() - t0
+    bad, st = atlas_scene.check_merge_gates(sys_, d)
+    if not bad:
+        bad = [f"the {name} is on {x.device}" for name, x in (
+            ("map", sys_.map.pt_xyz), ("bank", sys_.bank.xy),
+            ("database", sys_.loop_closer.db.tf)) if x.device.type != dev.type]
+    if bad:
+        _fail("merge gates failed: " + "; ".join(bad))
+
+    # the merging keyframe's try_merge on a CPU copy of the state it found
+    snap = seen["snap"]
+    m_g, bank_g, db_g, lm_g = seen["after"]
+    c, ff_c = _merge_system(snap, "cpu")
+    t0 = time.perf_counter()
+    if not run(c, ff_c, snap["ki"], idx_fn=loop_scene.fixed_samples):
+        _fail("the CPU copy of the merging keyframe did not merge")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    keys = ("session", "kf", "cand", "n_matches", "n_inliers", "kf_off", "pt_off")
+    if [c.last_merge[k] for k in keys] != [lm_g[k] for k in keys]:
+        bad.append(f"the card merged {[lm_g[k] for k in keys]}, the CPU "
+                   f"{[c.last_merge[k] for k in keys]}")
+    sim3_diff = max(float(np.abs(np.asarray(lm_g[k]) - np.asarray(c.last_merge[k])).max())
+                    for k in ("R", "t", "s"))
+    nk = c.n_kf_host
+    pose_diff = max(float((getattr(m_g, f)[:nk].cpu() - getattr(c.map, f)[:nk]).abs().max())
+                    for f in ("kf_R", "kf_t"))
+    ints = [f for f, x in c.map._asdict().items() if not x.is_floating_point()
+            and not torch.equal(getattr(m_g, f).cpu(), x)]
+    ints += [f"bank.{f}" for f, x in c.bank._asdict().items() if not x.is_floating_point()
+             and not torch.equal(getattr(bank_g, f).cpu(), x)]
+    if not torch.equal(db_g.active.cpu(), c.loop_closer.db.active):
+        ints.append("database.active")
+    if not (sim3_diff < 1e-3 and pose_diff < 1e-3) or ints:
+        bad.append(f"the card's merge from the CPU's: Sim3 {sim3_diff}, poses {pose_diff}, "
+                   f"integer fields differ: {ints}")
+    if bad:
+        _fail("merge, card against CPU: " + "; ".join(bad))
+
+    # the same try_merge on the card: its stages alone by CUDA events, then
+    # kernels and device time under the profiler, then its blocking reads
+    g, ff_g = _merge_system(snap, dev)
+    calls = {}
+    spied = [(map_merging.matching, "match_nn"), (map_merging.sim3solver, "solve_sim3"),
+             (map_merging.atlas_mod, "merge_maps"), (map_merging.atlas_mod, "splice_banks")]
+    orig = [getattr(mod, name) for mod, name in spied]
+
+    def keep(name, fn):
+        def wrapper(*a, **kw):
+            calls.setdefault(name, (a, kw))
+            return fn(*a, **kw)
+        return wrapper
+
+    for (mod, name), fn in zip(spied, orig):
+        setattr(mod, name, keep(name, fn))
+    merge_ba = g._merge_ba
+    g._merge_ba = keep("welding_ba", merge_ba)
+    try:
+        run(g, ff_g, snap["ki"], idx_fn=loop_scene.fixed_samples)
+    finally:
+        for (mod, name), fn in zip(spied, orig):
+            setattr(mod, name, fn)
+    sess = snap["sessions"][lm_g["session"]]
+    lc = g.loop_closer
+    merged = g.map
+    valid = np.nonzero(merged.kf_valid[:g.n_kf_host].cpu().numpy())[0].tolist()
+    bank = g.bank
+    (mm_a, mm_kw), (s3_a, s3_kw) = calls["match_nn"], calls["solve_sim3"]
+    mg_a, sp_a, ba_a = calls["merge_maps"][0], calls["splice_banks"][0], calls["welding_ba"][0]
+
+    sess_db = _to(sess.db, dev)
+
+    def rebuild():
+        lc.db = kdb.clear(lc.db)
+        for k in valid:
+            lc.add_keyframe(merged, k, fb.frame_view(bank, k))
+
+    stages = {
+        "query": (lambda: kdb.query(sess_db, lc._bow(ff_g.desc, ff_g.valid)[0]), 5),
+        "match_nn": (lambda: matching.match_nn(*mm_a, **mm_kw), 5),
+        "solve_sim3": (lambda: sim3solver.solve_sim3(*s3_a, **s3_kw), 5),
+        "merge_maps + splice_banks": (
+            lambda: (atlas.merge_maps(*mg_a), atlas.splice_banks(*sp_a)), 5),
+        "welding_ba": (lambda: merge_ba(*ba_a), 3),
+        "database_rebuild": (rebuild, 3)}
+    timed = {name: _event_ms(fn, runs=runs) for name, (fn, runs) in stages.items()}
+    g2, ff2 = _merge_system(snap, dev)
+    with profile_keyframe.DeviceWork() as w:
+        run(g2, ff2, snap["ki"], idx_fn=loop_scene.fixed_samples)
+    g3, ff3 = _merge_system(snap, dev)
+    found = []
+    with sync_census._sync_warnings(found):
+        run(g3, ff3, snap["ki"], idx_fn=loop_scene.fixed_samples)
+    return dict(stats=st, drive_s=drive_s, attempts=seen["attempts"], host_ms=seen["host_ms"],
+                cpu_ms=cpu_ms, sim3_diff=sim3_diff, pose_diff=pose_diff, stages=timed,
+                launches=w.launches, device_ms=w.device_ms, reads=len(found),
+                read_sites=collections.Counter(found), system=sys_, drive=d)
+
+
+def gnss_phase(scfg, frames, dev) -> dict:
+    """Phase 10b: bench.py's 78 frames with a GNSS fix before each
+    (`atlas_scene.drive_gnss`); the first GNSS BA again on the CPU from its
+    inputs; the GNSS stage by CUDA events and its blocking reads per
+    keyframe frame that ran it; the GNSS BA alone by events and under the
+    profiler.  Raises on a failed gate."""
+    import torch
+    from orbslam3_tpu_torch.pipeline import system
+    from orbslam3_tpu_torch.utils import atlas_scene, profile_keyframe, sync_census
+
+    ba_run, stage_run = system.gnss_ba, system.System._gnss_keyframe_stage
+    seen, stage_ev, stage_host = {}, [], []
+    found, frame_reads = [], {}
+
+    def ba_spy(*a, **kw):
+        out = ba_run(*a, **kw)
+        seen.setdefault("first", (a, kw, out))
+        return out
+
+    def stage_spy(self, ki, ts):
+        n0 = self.n_gnss_ba
+        t0 = time.perf_counter()
+        out = _events(stage_ev, stage_run)(self, ki, ts)
+        stage_host.append((time.perf_counter() - t0, self.n_gnss_ba > n0))
+        return out
+
+    class Frame:
+        """Counts the frame's blocking reads by `atlas_frame_kind`."""
+        def __init__(self, fi, s_):
+            self.s_ = s_
+
+        def __enter__(self):
+            found.clear()
+            s_ = self.s_
+            self.before = (s_.state, s_.n_kf_host, s_.last_merge, s_.n_gnss_ba)
+
+        def __exit__(self, *exc):
+            kind = profile_keyframe.atlas_frame_kind(self.s_, *self.before)
+            frame_reads.setdefault(kind, []).append(len(found))
+            return False
+
+    system.gnss_ba, system.System._gnss_keyframe_stage = ba_spy, stage_spy
+    t0 = time.perf_counter()
+    try:
+        with sync_census._sync_warnings(found):
+            sys_, d, gt = atlas_scene.drive_gnss(scfg, frames, dev, wrap=Frame)
+    finally:
+        system.gnss_ba, system.System._gnss_keyframe_stage = ba_run, stage_run
+    drive_s = time.perf_counter() - t0
+    bad, st = atlas_scene.check_gnss_gates(sys_, d, gt)
+    if bad:
+        _fail("GNSS gates failed: " + "; ".join(bad))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+    # the first GNSS BA on the CPU from the same inputs: keyframe centres
+    # within 1e-3 of the map's extent (the priors fix the gauge)
+    a, kw, out = seen["first"]
+    cfg, cam, m, ki, pp, pw, bank = a
+    t0 = time.perf_counter()
+    ref = ba_run(cfg, cam.cpu(), _to(m, "cpu"), ki, pp.cpu(), pw.cpu(), _to(bank, "cpu"))
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    nk = int(m.n_kf)
+    centre = lambda mm: (-mm.kf_R[:nk].transpose(1, 2) @ mm.kf_t[:nk, :, None])[..., 0].cpu()
+    ok = ref.pt_valid
+    extent = float(ref.pt_xyz[ok].abs().max())
+    centre_diff = float((centre(out) - centre(ref)).abs().max()) / extent
+    pt_diff = float((out.pt_xyz.cpu()[ok] - ref.pt_xyz[ok]).abs().max()) / extent
+    if not centre_diff < 1e-3:
+        _fail(f"the card's first GNSS BA from the CPU's: keyframe centres {centre_diff} of the "
+              f"extent (points {pt_diff})")
+    ba_ms = _event_ms(lambda: ba_run(*a, **kw), runs=3)
+    durs, per_call = profile_keyframe.kernel_durations(lambda: ba_run(*a, **kw), [""], runs=1)
+    return dict(stats=st, drive_s=drive_s, cpu_ms=cpu_ms, centre_diff=centre_diff,
+                pt_diff=pt_diff, ba_ms=ba_ms, ba_launches=per_call,
+                ba_device_ms=sum(durs[""]) / 1e3, stage_ms=_ms(stage_ev),
+                stage_host_ms=[(s * 1e3, posted) for s, posted in stage_host],
+                frame_reads=frame_reads, n_kf_ba=nk, system=sys_)
+
+
+def checkpoint_phase(sys_a, scfg, dev) -> dict:
+    """Phase 10c: 10a's merged System saved, loaded into a fresh System on
+    the card and one on the CPU (the two maps, banks and databases equal),
+    12 more frames of the path on the card (no reset, no keyframe slot
+    overwritten), and a frame from frame 10's viewpoint relocalized by a
+    third System loaded on the card against the restored database.  Raises
+    on a failed gate."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from orbslam3_tpu_torch.features import extractor
+    from orbslam3_tpu_torch.pipeline import relocalization, system
+    from orbslam3_tpu_torch.slam_map import checkpoint
+    from orbslam3_tpu_torch.utils import profile_keyframe
+    from orbslam3_tpu_torch.utils import seeded_scene as scene
+
+    out, bad = {}, []
+    more = dataclasses.replace(scfg, track_frames=tuple(range(78, 90)))
+    frames = scene.render_frames(more)
+    revisit = scene.render_revisit(scfg, [10])[10]
+    nk, last_ts = sys_a.n_kf_host, sys_a.last_kf_ts
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/merged.npz"
+        with profile_keyframe.DeviceWork() as w:
+            t0 = time.perf_counter()
+            checkpoint.save_system(path, sys_a)
+        out["save_ms"], out["save_launches"] = (time.perf_counter() - t0) * 1e3, w.launches
+        loaded, out["load_ms"] = [], []
+        for device in ("cpu", dev, dev):
+            s_ = system.System(sys_a.cfg, device=device)
+            with profile_keyframe.DeviceWork() if device != "cpu" else contextlib.nullcontext() \
+                    as w:
+                t0 = time.perf_counter()
+                checkpoint.load_system(path, s_)
+            loaded.append(s_)
+            out["load_ms"].append((time.perf_counter() - t0) * 1e3)
+            if w is not None:
+                out["load_launches"], out["load_device_ms"] = w.launches, w.device_ms
+        out["file_bytes"] = sum(os.path.getsize(p) for p in (path, path + ".extras.pkl"))
+    c, g, g3 = loaded
+    diff = [f for f, x in c.map._asdict().items() if not torch.equal(getattr(g.map, f).cpu(), x)]
+    diff += [f"bank.{f}" for f, x in c.bank._asdict().items()
+             if not torch.equal(getattr(g.bank, f).cpu(), x)]
+    diff += [f"database.{f}" for f, x in c.loop_closer.db._asdict().items()
+             if not torch.equal(getattr(g.loop_closer.db, f).cpu(), x)]
+    if diff:
+        bad.append(f"the card's and the CPU's loaded states differ in {diff}")
+    if (g.n_kf_host, g.state) != (nk, system.OK) or abs(g.last_kf_ts - last_ts) > 1e-5:
+        bad.append(f"restored {g.n_kf_host} keyframes, state {g.state}, last ts {g.last_kf_ts}")
+    drive = scene.drive_system(more, frames, dev, sys_=g)[1]
+    kf_ts_ok = torch.equal(g.map.kf_ts[:nk], sys_a.map.kf_ts[:nk])
+    if g.state != system.OK or g.n_resets or g.n_kf_host < nk or not kf_ts_ok:
+        bad.append(f"continued: state {g.state}, {g.n_resets} resets, {g.n_kf_host} keyframes "
+                   f"of {nk}, first timestamps intact {kf_ts_ok}")
+    ff = extractor.extract(torch.from_numpy(revisit).to(dev), g3.cfg.orb)
+    t0 = time.perf_counter()
+    ok, R, t = relocalization.attempt_relocalization(g3, ff, g3.loop_closer)
+    out["reloc_ms"] = (time.perf_counter() - t0) * 1e3
+    _, scale, _ = scene.system_ate(sys_a)
+    first = next(p for p in sys_a.trajectory if abs(p[0] - 1.0) < 1e-6)
+    err = float(np.linalg.norm(-R.cpu().numpy().T @ t.cpu().numpy() - first[2])) * scale if ok \
+        else float("nan")
+    if not err <= 0.05:
+        bad.append(f"frame 10 relocalized {ok}, centre {err} world units from its pose")
+    if bad:
+        _fail("checkpoint gates failed: " + "; ".join(bad))
+    out.update(n_kf=nk, n_kf_after=g.n_kf_host, frames=len(drive.frames),
+               frame_ms=statistics.median(drive.seconds) * 1e3, reloc_err=err, n_extract=13)
+    return out
+
+
+def atlas_phase(scfg, frames, dev) -> dict:
+    """Phase 10: 10a, 10b and 10c, each timed on the host clock."""
+    out = {}
+    for part, fn in (("merge", lambda: merge_phase(scfg, frames, dev)),
+                     ("gnss", lambda: gnss_phase(scfg, frames, dev)),
+                     ("checkpoint", lambda: checkpoint_phase(out["merge"]["system"], scfg, dev))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        out[part]["part_s"] = time.perf_counter() - t0
+    return out
+
+
+def print_atlas(ap: dict) -> None:
+    """Phase 10's lines."""
+    m, gn, ck = ap["merge"], ap["gnss"], ap["checkpoint"]
+    st, mg = m["stats"], m["stats"]["merge"]
+    print(f"atlas 10a ({m['part_s']:.1f} s): bench.py's 78 frames, 30-33 blank, with loop "
+          f"closing in {m['drive_s']:.1f} s: reset at frame {st['reset_frame']}, the second map "
+          f"merged at frame {st['merge_frame']} (its keyframe {mg['kf']} with the session's "
+          f"keyframe {mg['cand']}: {mg['n_matches']} matches, {mg['n_inliers']} Sim3 inliers, "
+          f"scale {st['scale_sim3']:.5g}; offsets {mg['kf_off']} / {mg['pt_off']}) after "
+          f"{m['attempts']} attempts, OK from the merge on, {st['per_session']} valid keyframes "
+          f"per session, {st['n_points']} points, merged trajectory {st['n_traj']} frames, ATE "
+          f"{st['ate']:.5g} ({st['ate'] / st['span']:.4f} of the span), merge edge persisted; "
+          f"the CPU copy merged the same (Sim3 within {m['sim3_diff']:.3g}, poses within "
+          f"{m['pose_diff']:.3g}, integer fields equal; {m['cpu_ms']:.1f} ms on the CPU); "
+          f"try_merge {m['host_ms']:.1f} ms on the host clock, {m['launches']} kernels, "
+          f"{m['device_ms']:.3f} ms of device time, {m['reads']} blocking reads", flush=True)
+    for name, ms in m["stages"].items():
+        print(f"  {name}: {ms:.3f} ms (CUDA events)", flush=True)
+    print(f"  reads: {dict(m['read_sites'])}", flush=True)
+    g = gn["stats"]
+    reads = {k: statistics.mean(v) for k, v in gn["frame_reads"].items()}
+    print(f"atlas 10b ({gn['part_s']:.1f} s): bench.py's 78 frames with GNSS fixes in "
+          f"{gn['drive_s']:.1f} s: "
+          f"georeference initialized (scale {g['geo_scale']:.5g}), {g['n_fixes']} keyframes "
+          f"with a fix, {g['n_gnss_ba']} GNSS BAs posted, {g['merged']} merged, geo RMSE "
+          f"{g['geo_rmse']:.5g} (< 0.5), 0 resets, every pose finite; the first GNSS BA "
+          f"({gn['n_kf_ba']} keyframes) on the CPU from its inputs: keyframe centres within "
+          f"{gn['centre_diff']:.3g} of the extent, points {gn['pt_diff']:.3g} "
+          f"({gn['cpu_ms']:.1f} ms on the CPU); GNSS BA alone {gn['ba_ms']:.3f} ms (CUDA "
+          f"events), {gn['ba_launches']} kernels, {gn['ba_device_ms']:.3f} ms of device time; "
+          f"GNSS stage {['%.3f' % x for x in gn['stage_ms']]} ms by events, on the host "
+          f"{['%.1f%s' % (s, '*' if p else '') for s, p in gn['stage_host_ms']]} ms (* posted "
+          f"a BA); blocking reads per frame {reads}", flush=True)
+    print(f"atlas 10c ({ck['part_s']:.1f} s): save {ck['save_ms']:.1f} ms ({ck['file_bytes']} bytes, "
+          f"{ck['save_launches']} kernels), load {ck['load_ms'][0]:.1f} ms on the CPU, "
+          f"{ck['load_ms'][1]:.1f} | {ck['load_ms'][2]:.1f} ms on the card (the last: "
+          f"{ck['load_launches']} kernels, {ck['load_device_ms']:.3f} ms of device time); the "
+          f"card's and the CPU's restored maps, banks and databases equal; {ck['frames']} more "
+          f"frames OK on the card (median {ck['frame_ms']:.3f} ms), 0 resets, keyframes "
+          f"{ck['n_kf']} -> {ck['n_kf_after']}, none overwritten; frame 10 relocalized against "
+          f"the restored database, centre {ck['reloc_err']:.4g} world units from its pose "
+          f"({ck['reloc_ms']:.1f} ms)", flush=True)
 
 
 def patch_kernel_work(sel, angle) -> dict:
@@ -1039,6 +1462,18 @@ def main() -> int:
     print_loop(lp, st)
     print(f"loop: phase {time.perf_counter() - t0:.1f} s; launches {loop_launches}", flush=True)
 
+    # 10. the multi-session Atlas, GNSS georeferencing, the checkpoint --------
+    orb_patches.reset_counters()
+    t0 = time.perf_counter()
+    ap = atlas_phase(scfg, sframes, dev)
+    atlas_launches = orb_patches.launch_counts()
+    n_atlas = 2 * len(scfg.track_frames) + ap["checkpoint"]["frames"] + 1
+    if atlas_launches != {"ic_moments": 0, "brief_desc": 0, "orb_describe": n_atlas}:
+        _fail(f"launch counters {atlas_launches} for {n_atlas} extract calls")
+    print_atlas(ap)
+    print(f"atlas: phase {time.perf_counter() - t0:.1f} s; launches {atlas_launches}",
+          flush=True)
+
     # report ----------------------------------------------------------------
     src = "orbslam3_tpu_torch/csrc/orb_patches.cu"
     replaces = {"ic_moments": "orbslam3_tpu/ops/pallas_patches.py:58",
@@ -1053,7 +1488,7 @@ def main() -> int:
          "launches_per_path": {"tracking": launches[k], "keyframe": kf_launches[k],
                                "system": sys_launches[k],
                                "relocalization": reloc_launches[k], "inertial": il[k],
-                               "loop": loop_launches[k]},
+                               "loop": loop_launches[k], "merge_gnss": atlas_launches[k]},
          "max_abs_err": err[k], "ms": ev_ms[k], "plain_ms": plain_ms[k],
          "bound_ms": work[k]["bound_ms"], "bound_by": work[k]["bound_by"],
          "library_ms": None, "device_ms": dev_ms[k], "bytes": work[k]["bytes"],

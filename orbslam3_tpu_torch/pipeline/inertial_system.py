@@ -42,8 +42,9 @@ velocity and drops the frame prior.  The keyframe step stays synchronous
 (`_async_ok` is False, as in JAX: the LastKeyFrame factor reads the
 keyframe's post-BA velocity and bias), and the inertial tracked frame does
 not poll the pending chain: a keyframe, a loss, an archive or shutdown
-merges it, as in JAX.  Not reachable in this port: the georeference of
-`_apply_world_sim3` (GNSS, refused by `System`).
+merges it, as in JAX.  A map merge welds rigidly once the IMU is
+initialized, and its welding BA is then the visual-inertial window BA
+(`_window_ba`), as JAX's rebinding of `_local_ba` makes it.
 """
 
 from __future__ import annotations
@@ -703,8 +704,17 @@ class InertialSystem(base.System):
 
     def _apply_world_sim3(self, Rg, s: float):
         """The world transform x' = s Rg x on every keyframe, point and
-        velocity and on the recorded trajectory (reference
-        Map::UpdateKFsAndMapCoordianteFrames)."""
+        velocity, on the recorded trajectory and on the georeference's
+        window of SLAM positions, which is then fitted again (reference
+        Map::UpdateKFsAndMapCoordianteFrames; without it the Umeyama fit
+        would mix frames from before and after the re-anchoring)."""
+        Rg_np = Rg.cpu().numpy()
+        if self.georef is not None and self.georef._slam:
+            R64 = Rg_np.astype(np.float64)
+            self.georef._slam = [(float(s) * (R64 @ np.asarray(p, np.float64))).astype(np.float32)
+                                 for p in self.georef._slam]
+            self.georef.transform = None
+            self.georef.update()
         m = self.map
         self.map = m._replace(
             kf_R=torch.einsum("kij,lj->kil", m.kf_R, Rg), kf_t=m.kf_t * s,
@@ -712,6 +722,5 @@ class InertialSystem(base.System):
             kf_vel=s * torch.einsum("ij,kj->ki", Rg, m.kf_vel),
             pt_normal=torch.einsum("ij,kj->ki", Rg, m.pt_normal),
             pt_min_dist=m.pt_min_dist * s, pt_max_dist=m.pt_max_dist * s)
-        Rg_np = Rg.cpu().numpy()
         self.trajectory = [(ts_, Rg_np @ Rwc_, float(s) * (Rg_np @ twc_))
                            for ts_, Rwc_, twc_ in self.trajectory]

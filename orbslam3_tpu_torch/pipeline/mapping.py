@@ -8,8 +8,8 @@ grid solver with observations from the FeatureBank or the COO list, over
 the covisibility window or the temporal one; `gather_window_problem` and
 `gather_window_problem_bank` gather the COO problem that the COO bundle
 adjuster (the post-loop full-map GBA among its callers) and the
-visual-inertial BA solve.  The sharded BA and GNSS priors are not ported
-yet and raise.
+visual-inertial BA solve, with the GNSS-constrained BA's position priors
+when given.  The sharded BA is not ported yet and raises.
 
 Tie rules kept from JAX: `lax.top_k` and `jnp.argsort` keep the lower
 index first on ties, so the port sorts stably; `argmin` takes the first
@@ -391,14 +391,15 @@ def gather_window_grid_bank(m: mapstate.MapState, bank: fb.FeatureBank, center_k
 def gather_window_problem(m: mapstate.MapState, center_kf, window: int, n_levels: int,
                           scale_factor: float, cap_cams: int = 32, cap_pts: int = 8192,
                           cap_obs: int = 32768, window_mode: str = "covis",
-                          min_anchors: int = 2):
+                          min_anchors: int = 2, prior_pos=None, prior_w=None):
     """The window problem as COO observations from the map's observation
     list (reference LocalBundleAdjustment window, src/Optimizer.cc:1069-1140):
     the points the window observes, budgeted by their observation count;
     every observer of those points, in-window cameras first (free), the
     best-connected others after them (fixed anchors); their observations
-    compacted to `cap_obs`.  Returns (BAProblem, cam_sel, cam_sel_valid,
-    pt_sel, pt_valid)."""
+    compacted to `cap_obs`.  `prior_pos` (K, 3) and `prior_w` (K,), per
+    keyframe, become the selected cameras' position priors.  Returns
+    (BAProblem, cam_sel, cam_sel_valid, pt_sel, pt_valid)."""
     K = m.kf_R.shape[0]
     P = m.pt_xyz.shape[0]
     dev = m.pt_xyz.device
@@ -437,20 +438,22 @@ def gather_window_problem(m: mapstate.MapState, center_kf, window: int, n_levels
         obs_uv=m.obs_uv[obs_sel], obs_inv_sigma2=inv_sigma2,
         obs_valid=obs_sel_valid & (o_kf >= 0) & (o_pt >= 0),
         obs_ur=m.obs_ur[obs_sel])
+    prob = _with_priors(prob, cam_sel, prior_pos, prior_w)
     return prob, cam_sel, cam_sel_valid, pt_sel, prob.pt_valid
 
 
 def gather_window_problem_bank(m: mapstate.MapState, bank: fb.FeatureBank, center_kf,
                                window: int, n_levels: int, scale_factor: float,
                                cap_cams: int = 32, cap_pts: int = 8192, cap_obs: int = 32768,
-                               window_mode: str = "covis", min_anchors: int = 2):
+                               window_mode: str = "covis", min_anchors: int = 2,
+                               prior_pos=None, prior_w=None):
     """The window problem as COO observations from the selected cameras'
     FeatureBank rows (the solvers that take an observation list, the
     visual-inertial BA among them).  Points are budgeted by their in-window
     observer count, in-window cameras come first and the best-connected
     out-of-window observers fill the rest as fixed anchors; the rows are
-    compacted to `cap_obs`.  Returns (BAProblem, cam_sel, cam_sel_valid,
-    pt_sel, pt_valid)."""
+    compacted to `cap_obs`; position priors as in `gather_window_problem`.
+    Returns (BAProblem, cam_sel, cam_sel_valid, pt_sel, pt_valid)."""
     P = m.pt_xyz.shape[0]
     dev = m.pt_xyz.device
     sf = _scale_factors(scale_factor, n_levels, dev)
@@ -487,7 +490,15 @@ def gather_window_problem_bank(m: mapstate.MapState, bank: fb.FeatureBank, cente
         obs_uv=bank.xy[cam_sel].reshape(-1, 2)[obs_sel], obs_inv_sigma2=inv_sigma2,
         obs_valid=obs_sel_valid & (o_pt >= 0),
         obs_ur=bank.ur[cam_sel].reshape(-1)[obs_sel])
+    prob = _with_priors(prob, cam_sel, prior_pos, prior_w)
     return prob, cam_sel, cam_sel_valid, pt_sel, prob.pt_valid
+
+
+def _with_priors(prob: ba.BAProblem, cam_sel, prior_pos, prior_w) -> ba.BAProblem:
+    """The selected cameras' rows of the per-keyframe position priors."""
+    if prior_pos is None:
+        return prob
+    return prob._replace(prior_pos=prior_pos[cam_sel], prior_w=prior_w[cam_sel])
 
 
 def run_local_ba(m: mapstate.MapState, center_kf, cam_model: str, cam_params,
@@ -504,19 +515,18 @@ def run_local_ba(m: mapstate.MapState, center_kf, cam_model: str, cam_params,
     grid solver, whose gather is always the covisibility window, as in JAX;
     the others (`schur_solver` "pcg" or "dense") to the COO bundle adjuster,
     gathered from the feature bank when one is given, else from the map's
-    observation list.  `chi2_cull` and `prior_w` are accepted only for
-    parity with the JAX signature and are not read (`chi2_cull` is unused
-    in JAX too; `prior_w` goes with `prior_pos`).  The sharded BA (`mesh`,
-    ROADMAP queue 1 item 9) and GNSS position priors (`prior_pos`, item 7)
-    are not ported yet and raise."""
+    observation list.  `prior_pos` (K, 3) and `prior_w` (K,) are per-keyframe
+    camera-centre priors and their information (0: none), the GNSS BA's
+    (`System._gnss_keyframe_stage`); a problem with them goes to the COO
+    solver.  `chi2_cull` is accepted only for parity with the JAX signature
+    and is not read (unused in JAX too).  The sharded BA (`mesh`, ROADMAP
+    queue 1 item 9) is not ported yet and raises."""
     if mesh is not None:
         raise NotImplementedError("the sharded BA over a mesh is queue 1 item 9")
-    if prior_pos is not None:
-        raise NotImplementedError("the GNSS-constrained BA (position priors) is queue 1 item 7")
     cap_cams = caps.get("cap_cams", 32)
     window_mode = caps.pop("window_mode", "covis")
     if schur_solver == "auto":
-        schur_solver = "grid" if cap_cams <= 32 else "pcg"
+        schur_solver = "grid" if prior_pos is None and cap_cams <= 32 else "pcg"
     if schur_solver == "grid":
         cap_pts = caps.get("cap_pts", 8192)
         if bank is not None:
@@ -534,11 +544,11 @@ def run_local_ba(m: mapstate.MapState, center_kf, cam_model: str, cam_params,
         if bank is not None:
             prob, cam_sel, cam_ok, pt_sel, pt_ok = gather_window_problem_bank(
                 m, bank, center_kf, window, n_levels, scale_factor,
-                window_mode=window_mode, **caps)
+                window_mode=window_mode, prior_pos=prior_pos, prior_w=prior_w, **caps)
         else:
             prob, cam_sel, cam_ok, pt_sel, pt_ok = gather_window_problem(
                 m, center_kf, window, n_levels, scale_factor, window_mode=window_mode,
-                **caps)
+                prior_pos=prior_pos, prior_w=prior_w, **caps)
         res = ba.bundle_adjust(prob, cam_model, cam_params, iterations=iterations,
                                stereo_bf=stereo_bf, pcg_iters=pcg_iters,
                                schur_solver=schur_solver)

@@ -50,12 +50,22 @@ With `enable_relocalization` (true by default, as in the JAX package) the
 the keyframe database, fed with both initial keyframes and with every
 inserted keyframe, erased of a culled keyframe, archived with the map's Atlas
 session, and queried by `relocalization.attempt_relocalization` on every
-lost frame.
+lost frame.  With `enable_loop_closing` and an archived session, each
+keyframe first tries to weld the current map into that session
+(`map_merging.try_merge`, the multi-session Atlas) and tries a loop closure
+only if it did not merge.
+
+With `enable_gnss` (the fork's GNSS georeferencing) `grab_gnss` queues
+fixes; each keyframe, after loop closing and when no chain is pending, takes
+the nearest fix in time, feeds the Umeyama georeference
+(`geometry.georef.GeometricReferencer`) and, once it is initialized, every
+`gnss_ba_every`-th keyframe posts the GNSS-constrained BA (position priors
+on every keyframe with a fix) as a "gba" pending chain;
+`trajectory_geo` gives the trajectory in the geo frame.
+`slam_map/checkpoint.py` saves and restores a `System`.
 
 Not ported yet, and refused by `System` when the configuration asks for
-them: GNSS, the sharded BA, non-pinhole cameras and stereo; map merging
-(`enable_loop_closing` with a stored Atlas session) is refused when a
-keyframe would run it.
+them: the sharded BA, non-pinhole cameras and stereo.
 
 Everything stays on the device except where the reference itself reads a
 value back: per frame the inlier count (read together with the pose that
@@ -64,9 +74,10 @@ match count, the outcome and the median depth; in the keyframe frame the
 redundancy flags of keyframe culling and the capacity check of slot
 compaction, both in `post_ba_stages`; per relocalization attempt the
 database's scores and the batch's decision; per loop-closing attempt what
-`LoopCloser.try_close` reads.  Feeding the database reads
-nothing.  Keyframe indices are host ints, as the JAX class mirrors them on
-the host.
+`LoopCloser.try_close` reads, per merge attempt what `map_merging.try_merge`
+reads; per keyframe with a GNSS fix the keyframe's centre.  Feeding the
+database reads nothing.  Keyframe indices are host ints, as the JAX class
+mirrors them on the host.
 """
 
 from __future__ import annotations
@@ -80,13 +91,14 @@ import torch
 
 from ..features import extractor
 from ..features.extractor import FeatureFrame, OrbParams
+from ..geometry import georef as georef_mod
 from ..geometry import twoview
 from ..ops import lie, matching
 from ..slam_map import atlas as atlas_mod
 from ..slam_map import feature_bank as fb
 from ..slam_map import state as mapstate
-from ..slam_map.state import _row, _set_drop, _set_drop_last
-from . import fusion, loop_closing, mapping, relocalization, tracking
+from ..slam_map.state import _row, _set_drop, _set_drop_last, _upload
+from . import fusion, loop_closing, map_merging, mapping, relocalization, tracking
 from ..place import keyframe_db as kdb
 
 NO_IMAGES_YET = 0
@@ -138,12 +150,16 @@ class SlamConfig:
     stereo_bf: float = 0.0     # fx * baseline; > 0 enables stereo residuals
     fuse_every_n_kf: int = 4   # SearchInNeighbors cadence (0 = off)
     kf_culling: bool = True    # KeyFrameCulling
+    # GNSS georeferencing (reference src/GeometricReferencer.cpp and
+    # LocalGNSSBundleAdjustment, src/Optimizer.cc:1362-1604): fixes through
+    # grab_gnss(); once the georeference is initialized, keyframe positions
+    # get GNSS position priors in the GNSS BA
     enable_gnss: bool = False
-    gnss_sigma: float = 0.5
-    gnss_min_kfs: int = 10
-    gnss_ba_every: int = 4
-    gnss_ba_cams: int = 64
-    gnss_time_tol: float = 0.05
+    gnss_sigma: float = 0.5        # fix standard deviation in SLAM-frame units
+    gnss_min_kfs: int = 10         # fixes before the Umeyama fit
+    gnss_ba_every: int = 4         # GNSS BA cadence (keyframes)
+    gnss_ba_cams: int = 64         # keyframe capacity of the GNSS BA window
+    gnss_time_tol: float = 0.05    # fix <-> frame association tolerance [s]
 
 
 def insert_kf(cfg: SlamConfig, cam, m: mapstate.MapState, bank: fb.FeatureBank,
@@ -275,8 +291,8 @@ def post_ba_stages(cfg: SlamConfig, cam, m: mapstate.MapState,
     must never come back as a candidate with its frozen pose), and without
     loop closing keyframe `ki` is registered at the end (the JAX stage's
     relocalization-only mode; with it, `LoopCloser.try_close` registers the
-    keyframe, after this function, in `System._post_ba_stages`).  The GNSS
-    stage (queue 1 item 7) is not ported yet and is left out."""
+    keyframe, after this function, in `System._post_ba_stages`, which also
+    runs map merging and the GNSS stage)."""
     dirty = False
     culled = None
     # SearchInNeighbors (reference src/LocalMapping.cc:764), then
@@ -311,6 +327,21 @@ def post_ba_stages(cfg: SlamConfig, cam, m: mapstate.MapState,
     if dirty or view is None:
         view = local_view(cfg, m, ki)
     return m, bank, kp_pt, view, culled
+
+
+def gnss_ba(cfg: SlamConfig, cam, m: mapstate.MapState, center_kf, prior_pos, prior_w,
+            bank: fb.FeatureBank) -> mapstate.MapState:
+    """The GNSS-constrained BA (the fork's LocalGNSSBundleAdjustment,
+    src/Optimizer.cc:1362-1604: every keyframe, reprojections and GNSS
+    position priors): the capacity-wide temporal window from the bank with
+    `gnss_ba_cams` cameras, 6144 points and 24576 observations, through the
+    COO bundle adjuster's PCG Schur solve."""
+    return mapping.run_local_ba(
+        m, center_kf, cfg.cam_model, cam, window=cfg.map_capacity.n_kf,
+        iterations=cfg.local_ba_iters, scale_factor=cfg.orb.scale_factor,
+        n_levels=cfg.orb.n_levels, stereo_bf=cfg.stereo_bf, prior_pos=prior_pos,
+        prior_w=prior_w, bank=bank, cap_cams=cfg.gnss_ba_cams, cap_pts=6144, cap_obs=24576,
+        window_mode="temporal")
 
 
 def cull_ba(cfg: SlamConfig, cam, m: mapstate.MapState, frame_id, center,
@@ -409,7 +440,6 @@ def renorm_init(m: mapstate.MapState, kf2) -> mapstate.MapState:
 def _check_ported(cfg: SlamConfig) -> None:
     """Refuse a configuration that asks for a part not ported yet."""
     asked = [
-        (cfg.enable_gnss, "enable_gnss (ROADMAP queue 1 item 7)"),
         (cfg.ba_mesh_shards > 1, "ba_mesh_shards > 1 (the sharded BA, queue 1 item 9)"),
         (cfg.cam_model != "pinhole", f"cam_model {cfg.cam_model!r} (queue 1 item 6)"),
         (cfg.stereo_bf > 0.0, "stereo_bf > 0 (stereo, queue 1 item 6)"),
@@ -487,6 +517,18 @@ class System:
         self._side_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
         # chains posted and merged, by kind and by how they were merged
         self.chain_counts: collections.Counter = collections.Counter()
+        # what the last map merge did (`map_merging.try_merge`), None if none
+        self.last_merge: Optional[dict] = None
+        # GNSS georeferencing: the fixes not yet associated, the fix of each
+        # keyframe that has one (geo frame, re-based to the first fix), the
+        # first fix, and the GNSS BAs posted
+        self.georef: Optional[georef_mod.GeometricReferencer] = None
+        self.gnss_queue: list[tuple[float, np.ndarray]] = []
+        self.kf_gnss: dict[int, np.ndarray] = {}
+        self.gnss_origin: Optional[np.ndarray] = None
+        self.n_gnss_ba = 0
+        if config.enable_gnss:
+            self.georef = georef_mod.GeometricReferencer(min_kfs=config.gnss_min_kfs)
 
     # ------------------------------------------------------------- frontend
     def _extract(self, img) -> FeatureFrame:
@@ -521,6 +563,29 @@ class System:
         return self._pose_host
 
     # ------------------------------------------------------------------ api
+    def grab_gnss(self, ts: float, geo_xyz) -> None:
+        """Queue one GNSS fix (a geo-frame position, e.g. EPSG3857 x, y and
+        altitude; reference ImageGrabber's GNSS pump and conversions.hpp).
+        Fixes are re-based to the first one in float64, then kept in float32."""
+        if self.georef is None:
+            return
+        p = np.asarray(geo_xyz, np.float64)
+        if self.gnss_origin is None:
+            self.gnss_origin = p.copy()
+        self.gnss_queue.append((ts, (p - self.gnss_origin).astype(np.float32)))
+
+    def trajectory_geo(self) -> np.ndarray:
+        """(N, 3) trajectory in the geo frame (the first fix added back)
+        through the georeference (GeometricReferencer::apply); the SLAM
+        trajectory until it is initialized."""
+        est = np.stack([p[2] for p in self.trajectory]) if self.trajectory else np.zeros((0, 3))
+        if self.georef is None or not self.georef.initialized:
+            return est
+        out = self.georef.apply(torch.from_numpy(est.astype(np.float32))).numpy()
+        if self.gnss_origin is not None:
+            out = out + self.gnss_origin[None, :]
+        return out
+
     def track_monocular(self, img, ts: float, features: Optional[FeatureFrame] = None):
         """Process one frame.  Returns (state, (Rwc, twc) in numpy or None).
 
@@ -755,23 +820,69 @@ class System:
         self._post_ba_stages(ki, ff, ts, kp_pt_new, view)
 
     def _post_ba_stages(self, ki: int, ff: FeatureFrame, ts: float, kp_pt, view=None) -> None:
-        """The stages after the window BA (`post_ba_stages`), then loop
-        closing: sync mode runs them in the keyframe frame, async mode at
-        the swap-in (the reference runs them on its LocalMapping and
-        LoopClosing threads).  With a stored Atlas session the JAX package
-        tries map merging first (queue 1 item 5, not ported yet)."""
+        """The stages after the window BA (`post_ba_stages`), then map
+        merging or loop closing, then the GNSS stage: sync mode runs them in
+        the keyframe frame, async mode at the swap-in (the reference runs
+        them on its LocalMapping and LoopClosing threads).  With a stored
+        Atlas session the keyframe first tries to merge, and tries a loop
+        closure only if it did not (system.py:1037-1045).  The GNSS stage
+        runs after them, so that a GNSS BA starts from the corrected map, and
+        only when nothing is pending: a GBA that a closure posted keeps the
+        slot and the GNSS BA waits for the next cadence."""
         self.map, self.bank, _, self.view, culled = post_ba_stages(
             self.cfg, self.cam_params, self.map, self.bank, ki, ff, kp_pt, view,
             loop_closer=self.loop_closer)
         if culled is not None:
             self._cull_keyframe(culled)
         if self.cfg.enable_loop_closing and self.loop_closer is not None:
-            if self.atlas.sessions:
-                raise NotImplementedError(
-                    "map merging (enable_loop_closing with a stored Atlas session) is "
-                    "ROADMAP queue 1 item 5")
-            if self.loop_closer.try_close(self, ff, ki):
+            merged = bool(self.atlas.sessions) and map_merging.try_merge(self, ff, ki)
+            if merged:
+                ki = self.last_kf_idx       # the keyframe's index in the merged map
+            if merged or self.loop_closer.try_close(self, ff, ki):
                 self._refresh_view()
+        if self.georef is not None and self._pending is None:
+            self._gnss_keyframe_stage(ki, ts)
+
+    def _gnss_keyframe_stage(self, ki: int, ts: float) -> None:
+        """Associate the queued fix nearest in time with keyframe `ki`, update
+        the Umeyama georeference, and at cadence post the GNSS-constrained BA
+        (reference LocalMapping's GNSS stage, src/LocalMapping.cc:155-189).
+        Reads the keyframe's pose when a fix is associated."""
+        cfg = self.cfg
+        best = None
+        for ft, fp in self.gnss_queue:
+            if abs(ft - ts) <= cfg.gnss_time_tol and \
+                    (best is None or abs(ft - ts) < abs(best[0] - ts)):
+                best = (ft, fp)
+        self.gnss_queue = [q for q in self.gnss_queue if q[0] > ts - cfg.gnss_time_tol]
+        if best is None:
+            return
+        self.kf_gnss[ki] = best[1]
+        Rt = torch.cat([self.map.kf_R[ki].reshape(-1), self.map.kf_t[ki]]).cpu().numpy()
+        self.georef.add_fix(Rt[:9].reshape(3, 3).T @ (-Rt[9:]), best[1])
+        self.georef.update()
+        if not self.georef.initialized or ki % max(cfg.gnss_ba_every, 1) != 0:
+            return
+        # the fixes pulled into the SLAM frame by the inverse georeference
+        # (the map and its gauge stay in SLAM coordinates; the reference
+        # optimizes in the geo frame, the same problem up to the Sim3)
+        T = self.georef.transform
+        R_i = T.R.numpy().T
+        s_i = 1.0 / max(float(T.s), 1e-9)
+        t_np = T.t.numpy()
+        K = cfg.map_capacity.n_kf
+        prior_pos = np.zeros((K, 3), np.float32)
+        prior_w = np.zeros(K, np.float32)
+        for k, fix in self.kf_gnss.items():
+            prior_pos[k] = s_i * (R_i @ (fix - t_np))
+            prior_w[k] = 1.0 / (cfg.gnss_sigma * s_i) ** 2
+        # a pending chain, absorbed like the post-loop GBA: the per-frame
+        # pose optimization re-anchors the camera to the geo-corrected map
+        self._post_chain(lambda m, bank, pp, pw: gnss_ba(cfg, self.cam_params, m, ki, pp, pw,
+                                                         bank),
+                         ki, "gba", (self.map, self.bank, _upload(prior_pos, self.device),
+                                     _upload(prior_w, self.device)))
+        self.n_gnss_ba += 1
 
     # ------------------------------------------------------- pending chain
     def _post_chain(self, fn, ki: int, kind: str, inputs: tuple, ff=None, ts: float = 0.0):
@@ -852,6 +963,13 @@ class System:
         once the IMU is initialized."""
         return None
 
+    def _merge_ba(self, m: mapstate.MapState, ki: int) -> mapstate.MapState:
+        """The welding BA of a map merge around keyframe `ki`: the keyframe
+        step's window BA (`_window_ba`), the visual one from the map's
+        observation list, as JAX's `_local_ba(m, ki)`."""
+        ba = self._window_ba()
+        return local_ba(self.cfg, self.cam_params, m, ki) if ba is None else ba(m, ki, self.bank)
+
     def _cull_keyframe(self, kf_idx: int) -> None:
         """Keyframe culling removed keyframe `kf_idx` from the map and the
         keyframe database (`post_ba_stages`); this hook updates what a
@@ -922,6 +1040,10 @@ class System:
         if self.bank is not None:
             self.bank = fb.empty_bank(self.bank.xy.shape[0], self.bank.xy.shape[1],
                                       self.device)
+        # the GNSS state belongs to the map: a fresh SLAM frame voids the Sim3
+        self.kf_gnss.clear()
+        if self.georef is not None:
+            self.georef = georef_mod.GeometricReferencer(min_kfs=self.cfg.gnss_min_kfs)
 
     # ------------------------------------------------------------------ api
     def activate_localization_mode(self) -> None:

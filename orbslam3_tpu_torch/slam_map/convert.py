@@ -3,9 +3,13 @@
 numpy in, numpy out; nothing here imports JAX.  A test fills these from
 `jax.device_get(x)._asdict()` so that both sides compute on the same map,
 view, feature frame, feature bank, match set, two-view result, keyframe
-database, codebook, preintegration, factor stack or frame prior, and
+database, codebook, preintegration, factor stack or frame prior;
 `set_inertial_state` gives an `InertialSystem` the inertial bookkeeping of
-another one.  uint32 descriptor and codebook words cross as int32
+another one; `bank_from_frames` and `session_from_numpy` turn the JAX
+`System`'s per-keyframe host dictionaries (features, bindings) into the
+port's feature bank, the latter for a whole Atlas session (map, bank,
+trajectory, database), and `slam_map/checkpoint.py` rebuilds a restored
+bank with the former.  uint32 descriptor and codebook words cross as int32
 bit patterns (`.view(np.int32)`), the port's descriptor format.
 """
 
@@ -22,6 +26,8 @@ from ..place.keyframe_db import KeyframeDB
 from ..place.vocab import codebook_tensor as codebook_from_numpy  # (V, 8) uint32 -> int32
 from ..solver.inertial import PreintFactor
 from ..solver.vi_pose_opt import VIPosePrior
+from . import feature_bank as fb
+from .atlas import MapSession
 from .feature_bank import FeatureBank
 from .state import MapState, PointView
 
@@ -51,6 +57,40 @@ def frame_from_numpy(fields: dict, device="cpu") -> FeatureFrame:
 
 def bank_from_numpy(fields: dict, device="cpu") -> FeatureBank:
     return _build(FeatureBank, fields, device)
+
+
+def bank_from_frames(n_kf: int, frames: dict, bindings: dict, device="cpu",
+                     ur: dict | None = None) -> FeatureBank | None:
+    """The feature bank that the JAX `System` builds from its host
+    dictionaries ({keyframe: FeatureFrame fields}, {keyframe: kp_pt}, and
+    for stereo {keyframe: right-u}): a row for every keyframe with features
+    and bindings (`System._bank_store`), the others empty; None when no
+    keyframe has both."""
+    rows = sorted(k for k in frames if k in bindings)
+    if not rows:
+        return None
+    bank = {k: v.numpy() for k, v in fb.empty_bank(n_kf, len(frames[rows[0]]["xy"]))._asdict()
+            .items()}
+    for k in rows:
+        f = frames[k]
+        for name in ("xy", "desc", "octave", "angle", "valid"):
+            bank[name][k] = np.asarray(f[name]).view(np.int32) if name == "desc" else f[name]
+        bank["kp_pt"][k] = bindings[k]
+        if ur is not None and k in ur:
+            bank["ur"][k] = ur[k]
+    return bank_from_numpy(bank, device)
+
+
+def session_from_numpy(map_fields: dict, frames: dict, bindings: dict, trajectory: list,
+                       db_fields: dict | None = None, device="cpu") -> MapSession:
+    """A JAX Atlas session (its map's fields, the `kf_features` and
+    `kf_bindings` dictionaries as numpy, the trajectory and its keyframe
+    database's fields) as the port's `MapSession`."""
+    m = map_from_numpy(map_fields, device)
+    return MapSession(
+        map=m, bank=bank_from_frames(m.kf_R.shape[0], frames, bindings, device),
+        trajectory=[(ts, np.array(R), np.array(t)) for ts, R, t in trajectory],
+        db=None if db_fields is None else db_from_numpy(db_fields, device))
 
 
 def matches_from_numpy(fields: dict, device="cpu") -> Matches:

@@ -3,6 +3,7 @@
     python -m orbslam3_tpu_torch.utils.profile_keyframe [--frames 12] [--out DIR]
     python -m orbslam3_tpu_torch.utils.profile_keyframe --inertial [--out DIR]
     python -m orbslam3_tpu_torch.utils.profile_keyframe --async [--out DIR]
+    python -m orbslam3_tpu_torch.utils.profile_keyframe --atlas [--out DIR]
 
 Seeds the default-size scene (`seeded_scene.SceneConfig()`), runs the drive
 once to warm up, then profiles it again over `--frames` tracked frames
@@ -25,6 +26,13 @@ keyframe frame), with the inertial stages as ranges: `preintegrate`,
 `insert_kf`, `local_ba`, `vi_bundle_adjust`, `inertial_only_init`,
 `post_ba_stages`.  Prints the range table per kind and writes it to
 `DIR/inertial_profile.json`.
+
+`--atlas` drives `atlas_scene`'s two drives (phase 10a's merge and 10b's
+GNSS drive of `chip_smoke.py`) once to find the merging keyframe frame and
+the first keyframe frame that posts a GNSS BA, then again with those two
+frames under the profiler; prints their kernels, device ms and range table
+(the keyframe step's ranges, `try_merge`, `merge_ba`, `gnss_keyframe_stage`,
+`gnss_ba`) and writes it to `DIR/atlas_profile.json`.
 
 `--async` compares phase 6 of `chip_smoke.py` (bench.py's 78 frames through
 `System.track_monocular`) synchronous, with `async_mapping`, and with
@@ -290,6 +298,107 @@ def profile_inertial(dev, out_dir: str, card: str) -> dict:
     return result
 
 
+def atlas_frame_kind(sys_, state_before: int, n_kf_before: int, merges_before,
+                     gnss_ba_before: int) -> str:
+    """The kind of a frame of an `atlas_scene` drive: "merging keyframe
+    frame" (it welded a session), "GNSS BA keyframe frame" (its GNSS stage
+    posted a GNSS BA), "GNSS keyframe frame" (a keyframe frame whose GNSS
+    stage took a fix and posted nothing), "keyframe frame", "tracked frame",
+    or "other frame" (initialization, loss)."""
+    from ..pipeline import system
+    if sys_.last_merge is not merges_before:
+        return "merging keyframe frame"
+    if sys_.n_gnss_ba > gnss_ba_before:
+        return "GNSS BA keyframe frame"
+    if state_before not in (system.OK, system.RECENTLY_LOST) or sys_.state != system.OK:
+        return "other frame"
+    if sys_.n_kf_host > n_kf_before:
+        return "GNSS keyframe frame" if sys_.georef is not None else "keyframe frame"
+    return "tracked frame"
+
+
+def atlas_drives(dev, wrap=None, on_frame=None):
+    """`atlas_scene`'s two drives at the default size on `dev`: (merge
+    System, GNSS System).  `wrap(drive, fi, sys_)` may return a context
+    manager for frame fi; `on_frame(drive, fi, sys_, kind)` runs after it
+    (kind: `atlas_frame_kind`)."""
+    from . import atlas_scene
+    from . import seeded_scene as scene
+
+    cfg = dataclasses.replace(scene.SceneConfig(), seed_frames=(), track_frames=tuple(range(78)))
+    frames = scene.render_frames(cfg)
+    out = []
+    for name, drive in (("merge", atlas_scene.drive_merge), ("gnss", atlas_scene.drive_gnss)):
+        class Frame:
+            def __init__(self, fi, sys_):
+                self.fi, self.sys_ = fi, sys_
+                self.ctx = (wrap(name, fi, sys_) if wrap else None) or contextlib.nullcontext()
+
+            def __enter__(self):
+                s_ = self.sys_
+                self.before = (s_.state, s_.n_kf_host, s_.last_merge, s_.n_gnss_ba)
+                return self.ctx.__enter__()
+
+            def __exit__(self, *exc):
+                out_ = self.ctx.__exit__(*exc)
+                if on_frame is not None:
+                    on_frame(name, self.fi, self.sys_, atlas_frame_kind(self.sys_, *self.before))
+                return out_
+
+        out.append(drive(cfg, frames, dev, wrap=Frame)[0])
+    return tuple(out)
+
+
+def profile_atlas(dev, out_dir: str, card: str) -> dict:
+    """`atlas_scene`'s drives twice: once to find the merging keyframe frame
+    and the first GNSS BA keyframe frame, then again with those two frames
+    under the profiler, with the merge's and the GNSS stage's ranges."""
+    from ..pipeline import map_merging, system
+    found = {}
+
+    def note(drive, fi, sys_, kind):
+        if kind in ("merging keyframe frame", "GNSS BA keyframe frame"):
+            found.setdefault(kind, (drive, fi))
+
+    atlas_drives(dev, on_frame=note)
+    names = _instrument() + ("try_merge", "merge_ba", "gnss_keyframe_stage", "gnss_ba")
+    map_merging.try_merge = _ranged("try_merge", map_merging.try_merge)
+    system.System._merge_ba = _ranged("merge_ba", system.System._merge_ba)
+    system.System._gnss_keyframe_stage = _ranged("gnss_keyframe_stage",
+                                                 system.System._gnss_keyframe_stage)
+    system.gnss_ba = _ranged("gnss_ba", system.gnss_ba)
+    targets = {v: k for k, v in found.items()}
+    done = {}
+
+    def wrap(drive, fi, sys_):
+        kind = targets.get((drive, fi))
+        return None if kind is None else DeviceWork(kind, ranges=names)
+
+    def on_frame(drive, fi, sys_, kind):
+        w = DeviceWork.last
+        DeviceWork.last = None
+        if w is not None:
+            w.frame = fi
+            done[w.kind] = (w, kind)
+
+    atlas_drives(dev, wrap=wrap, on_frame=on_frame)
+    print(f"card: {card}")
+    result = {"card": card, "kinds": {}}
+    for kind, (w, seen) in done.items():
+        print(f"{kind} (frame {w.frame}; this drive: {seen}): {w.launches} kernels, "
+              f"{w.device_ms:.2f} ms of device time")
+        for name in names:
+            if name in w.table:
+                c, host, devms, n = w.table[name]
+                print(f"  {name:26s} {c:5d} {host:10.2f} {devms:10.2f} {n:9d}")
+        result["kinds"][kind] = dict(frame=w.frame, kind_seen=seen, launches=w.launches,
+                                     device_ms=w.device_ms, ranges=w.table)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "atlas_profile.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    return result
+
+
 ASYNC_MODES = {"sync": {}, "async": dict(async_mapping=True),
                "async + loop closing": dict(async_mapping=True, enable_loop_closing=True)}
 
@@ -389,6 +498,7 @@ def main() -> int:
     ap.add_argument("--out", default="profile_out")
     ap.add_argument("--inertial", action="store_true")
     ap.add_argument("--async", dest="async_", action="store_true")
+    ap.add_argument("--atlas", action="store_true")
     ap.add_argument("--rounds", type=int, default=3)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -401,6 +511,9 @@ def main() -> int:
         return 0
     if args.async_:
         profile_async(torch.device("cuda", 0), args.out, card, args.rounds)
+        return 0
+    if args.atlas:
+        profile_atlas(torch.device("cuda", 0), args.out, card)
         return 0
     cfg = dataclasses.replace(scene.SceneConfig(),
                               track_frames=tuple(range(19, 19 + args.frames)))

@@ -33,6 +33,7 @@ their map without two-view initialization:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import NamedTuple
@@ -397,22 +398,30 @@ class SystemDrive(NamedTuple):
     init_frame: int    # position in `frames` of the initialising frame, -1 if none
 
 
-def drive_system(cfg: SceneConfig, frames: dict, device, seed: int = 42, **overrides):
+def drive_system(cfg: SceneConfig, frames: dict, device, seed: int = 42, sys_=None,
+                 before=None, wrap=None, **overrides):
     """Feed cfg.track_frames, as uint8 images with ts = i / 10, to a fresh
-    `System` through `track_monocular` and nothing else (`device` None: the
+    `System` (or to `sys_`) through `track_monocular` (`device` None: the
     System's default, the card); `overrides` replace fields of its
-    `system_config` (async_mapping, enable_loop_closing, ...).  Returns
-    (System, SystemDrive)."""
-    sys_ = system.System(dataclasses.replace(system_config(cfg), **overrides), device=device,
-                         seed=seed)
+    `system_config` (async_mapping, enable_loop_closing, ...).  `before(fi,
+    sys_)` runs before frame fi (another sensor's input: `grab_gnss`), and
+    `wrap(fi, sys_)`, if given, returns a context manager that the frame runs
+    in (a profiler, a read census).  Returns (System, SystemDrive)."""
+    if sys_ is None:
+        sys_ = system.System(dataclasses.replace(system_config(cfg), **overrides),
+                             device=device, seed=seed)
     sync = _sync_fn(device)
     d = SystemDrive([], [], [], [], [], -1)
     init_frame = -1
     for n, fi in enumerate(cfg.track_frames):
         was = sys_.state
+        if before is not None:
+            before(fi, sys_)
+        ctx = wrap(fi, sys_) if wrap is not None else contextlib.nullcontext()
         sync()
         t0 = time.perf_counter()
-        state, _ = sys_.track_monocular(frames[fi], fi / 10.0)
+        with ctx:
+            state, _ = sys_.track_monocular(frames[fi], fi / 10.0)
         sync()
         d.seconds.append(time.perf_counter() - t0)
         d.frames.append(fi)

@@ -2,6 +2,7 @@
 
     python -m orbslam3_tpu_torch.utils.sync_census [--frames 40]
     python -m orbslam3_tpu_torch.utils.sync_census --inertial [--frames 128]
+    python -m orbslam3_tpu_torch.utils.sync_census --atlas
 
 Feeds the first `--frames` frames of `seeded_scene`'s default scene to a
 `System` on the card, then 2 textureless frames (the track is lost) and
@@ -18,6 +19,11 @@ from.
 The default run then counts one loop closure, kind "loop closure": the
 reads of `LoopCloser.try_close` on `loop_scene`'s drifted revisit at the
 default capacity (1200-keypoint frames), from detection to the posted GBA.
+
+`--atlas` counts the frames of `atlas_scene`'s two drives instead (chip_smoke
+phases 10a and 10b): the keyframe frame that merges the stored session into
+the current map, the keyframe frames whose GNSS stage takes a fix and those
+that also post a GNSS BA, beside the tracked and keyframe frames.
 
 `--inertial` counts the mono-inertial System's frames instead, on
 `imu_scene`'s drive (its first `--frames` frames, 128 by default), grouped
@@ -167,6 +173,28 @@ def loop_census(dev) -> dict:
     return {"loop closure": [1, collections.Counter(found)]}
 
 
+def atlas_census(dev) -> dict:
+    """{frame kind: (frames, Counter of sites -> reads)} over `atlas_scene`'s
+    two drives (`profile_keyframe.atlas_frame_kind`: the merging keyframe
+    frame, the keyframe frames that ran the GNSS stage, ...)."""
+    from .profile_keyframe import atlas_drives
+
+    kinds: dict = {}
+    found: list = []
+
+    def wrap(drive, fi, sys_):
+        found.clear()
+
+    def on_frame(drive, fi, sys_, kind):
+        n, sites = kinds.setdefault(kind, [0, collections.Counter()])
+        kinds[kind][0] = n + 1
+        sites.update(found)
+
+    with _sync_warnings(found):
+        atlas_drives(dev, wrap=wrap, on_frame=on_frame)
+    return kinds
+
+
 def main() -> int:
     import torch
     from . import seeded_scene as scene
@@ -174,6 +202,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--inertial", action="store_true")
+    ap.add_argument("--atlas", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -183,6 +212,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     if args.inertial:
         kinds = inertial_census(dev, args.frames or 128)
+    elif args.atlas:
+        kinds = atlas_census(dev)
     else:
         cfg = dataclasses.replace(scene.SceneConfig(), seed_frames=(),
                                   track_frames=tuple(range(args.frames or 40)))

@@ -1,8 +1,8 @@
 """The ORB patch kernels (CUDA, sm_90a) against their plain PyTorch twins, the
 keyframe step on the card against the same step on the CPU, the `System`
 from raw frames on the card, the 65536-word vocabulary and a relocalization
-on the card, the VI BA, the COO BA and the post-loop GBA, and a loop
-closure on the card against the CPU.
+on the card, the VI BA, the COO BA and the post-loop GBA, a loop closure, a
+map merge and the GNSS BA on the card against the CPU.
 
 These need an NVIDIA GPU with nvcc and are marked `gpu`; without a card they
 skip.  With a GPU: `python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest`
@@ -429,3 +429,68 @@ def test_try_close_on_the_card_matches_the_cpu(dev):
                  / ref.pt_xyz[ok].abs().max()) < 1e-4
     assert float(torch.linalg.norm(-c.map.kf_R[kr].T @ c.map.kf_t[kr])) < 0.15
     assert float(torch.linalg.norm(-g.map.kf_R[kr].T @ g.map.kf_t[kr])) < 0.15
+
+
+def _merged(device):
+    """`atlas_scene.two_sessions` on `device`, merged by `try_merge` with
+    `loop_scene.fixed_samples`."""
+    from orbslam3_tpu_torch.pipeline import map_merging
+    from orbslam3_tpu_torch.utils import atlas_scene, loop_scene
+    cfg = system.SlamConfig(cam_params=loop_scene.K4, image_hw=(480, 752),
+                            enable_loop_closing=True,
+                            map_capacity=MapCapacity(n_kf=32, n_pt=4096, n_obs=16384))
+    sys_ = system.System(cfg, device=device)
+    ff = atlas_scene.two_sessions(sys_)
+    assert map_merging.try_merge(sys_, ff, 1, idx_fn=loop_scene.fixed_samples)
+    return sys_
+
+
+def test_try_merge_on_the_card_matches_the_cpu(dev):
+    """The two-session scene welded on the card and on the CPU with the same
+    Sim3 samples: the same outcome (session, candidate, matches, inliers,
+    offsets), the world Sim3 within 1e-4; the merged map's and bank's
+    integer fields equal, poses within 1e-4 and points within 1e-4 of the
+    scene's extent after the welding BA; the database rebuilt over the same
+    keyframes; everything on the card."""
+    c, g = _merged("cpu"), _merged(dev)
+    keys = ("session", "kf", "cand", "n_matches", "n_inliers", "kf_off", "pt_off")
+    assert [c.last_merge[k] for k in keys] == [g.last_merge[k] for k in keys]
+    for k in ("R", "t", "s"):
+        np.testing.assert_allclose(g.last_merge[k], c.last_merge[k], atol=1e-4)
+    assert g.map.kf_R.device == dev and g.bank.kp_pt.device == dev
+    extent = float(c.map.pt_xyz.abs().max())
+    for name, a in g.map._asdict().items():
+        b = getattr(c.map, name)
+        if a.is_floating_point():
+            tol = 1e-4 * extent if name == "pt_xyz" else 1e-4
+            torch.testing.assert_close(a.cpu(), b, atol=tol, rtol=0, msg=name)
+        else:
+            assert torch.equal(a.cpu(), b), name
+    for a, b in zip(g.bank, c.bank):
+        assert torch.equal(a.cpu(), b)
+    assert torch.equal(g.loop_closer.db.active.cpu(), c.loop_closer.db.active)
+
+
+def test_gnss_ba_on_the_card_matches_the_cpu(dev):
+    """`system.gnss_ba` (the capacity-wide temporal window with position
+    priors through the COO PCG solve) on the merged two-session map, the
+    card against the CPU from the same inputs: keyframe centres within 1e-3
+    of the map's extent, points within 1e-3 of it."""
+    c = _merged("cpu")
+    K = c.cfg.map_capacity.n_kf
+    rng = np.random.default_rng(0)
+    centres = (-c.map.kf_R.transpose(1, 2) @ c.map.kf_t[..., None])[..., 0].numpy()
+    pp = (centres + rng.normal(0, 0.05, centres.shape)).astype(np.float32)
+    pw = np.zeros(K, np.float32)
+    pw[:3] = 1.0 / 0.05 ** 2
+    args = (c.map, 2, torch.from_numpy(pp), torch.from_numpy(pw), c.bank)
+    ref = system.gnss_ba(c.cfg, c.cam_params, *args)
+    mv = lambda x: type(x)(*(y.to(dev) for y in x)) if isinstance(x, tuple) else \
+        x.to(dev) if isinstance(x, torch.Tensor) else x
+    got = system.gnss_ba(c.cfg, c.cam_params.to(dev), *map(mv, args))
+    assert got.kf_R.device == dev
+    extent = float(ref.pt_xyz.abs().max())
+    cg = (-got.kf_R.transpose(1, 2) @ got.kf_t[..., None])[..., 0].cpu()
+    cr = (-ref.kf_R.transpose(1, 2) @ ref.kf_t[..., None])[..., 0]
+    assert float((cg[:3] - cr[:3]).abs().max()) < 1e-3 * extent
+    assert float((got.pt_xyz.cpu() - ref.pt_xyz).abs().max()) < 1e-3 * extent

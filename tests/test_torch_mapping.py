@@ -376,7 +376,9 @@ def test_gather_window_grid_matches_jax(kf_map, source):
 def test_run_local_ba_matches_jax(kf_map):
     """Bank-sourced window BA, 6 LM steps, written back: the same free
     cameras move; poses within 1e-4 and points within 1e-3 of their scale
-    (the accept pattern is the same, the float32 sums are not)."""
+    (the accept pattern is the same, the float32 sums are not).  The same
+    window with GNSS position priors goes to the COO solver in both and is
+    held to the same tolerances."""
     mj, bj, _, _ = kf_map
     mj = _perturbed(mj, 9)
     mt, bt = convert.map_from_numpy(H.fields(mj)), convert.bank_from_numpy(H.fields(bj))
@@ -388,11 +390,22 @@ def test_run_local_ba_matches_jax(kf_map):
     _close(got.pt_xyz, ref.pt_xyz, 1e-3 * 8)
     assert np.abs(np.asarray(ref.kf_t) - np.asarray(mj.kf_t)).max() > 1e-3   # it moved
     _fields_equal(got, ref, skip=("kf_R", "kf_t", "pt_xyz"))
-    # the sharded BA and the GNSS priors are not ported yet
+    # the sharded BA is not ported yet
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         tmapping.run_local_ba(mt, 5, "pinhole", _t(K4), mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        tmapping.run_local_ba(mt, 5, "pinhole", _t(K4), prior_pos=torch.zeros(16, 3))
+    # position priors route the window to the COO solver, as in JAX: the
+    # same poses within 1e-4 and points within 1e-3 of their scale
+    K = mj.kf_R.shape[0]
+    pp = np.asarray(-np.einsum("kji,kj->ki", np.asarray(mj.kf_R), np.asarray(mj.kf_t)))
+    pp = (pp + np.random.default_rng(4).normal(0, 0.1, pp.shape)).astype(np.float32)
+    pw = np.full(K, 100.0, np.float32)
+    ref = jmapping.run_local_ba(mj, jnp.asarray(5), "pinhole", K4, bank=bj,
+                                prior_pos=jnp.asarray(pp), prior_w=jnp.asarray(pw), **kw)
+    got = tmapping.run_local_ba(mt, 5, "pinhole", _t(K4), bank=bt, prior_pos=_t(pp),
+                                prior_w=_t(pw), **kw)
+    _close(got.kf_R, ref.kf_R, 1e-4)
+    _close(got.kf_t, ref.kf_t, 1e-4)
+    _close(got.pt_xyz, ref.pt_xyz, 1e-3 * 8)
 
 
 # ------------------------------------------------------------- feature bank

@@ -24,6 +24,7 @@ import torch_parity_helpers as H
 from orbslam3_tpu.ops import lie as jlie
 from orbslam3_tpu.pipeline import system as jsystem
 from orbslam3_tpu.slam_map import state as jstate
+from orbslam3_tpu_torch.geometry.georef import GeometricReferencer
 from orbslam3_tpu_torch.ops import lie as tlie
 from orbslam3_tpu_torch.ops import matching as tmatching
 from orbslam3_tpu_torch.pipeline import system as tsystem
@@ -251,6 +252,7 @@ def _booted(n_warm=12, kf_every=15):
     sys_ = copy.copy(_booted_once(n_warm, kf_every))
     sys_.trajectory = list(sys_.trajectory)
     sys_.atlas = copy.deepcopy(sys_.atlas)
+    sys_.loop_closer = copy.copy(sys_.loop_closer)   # a test's new database stays its own
     return sys_
 
 
@@ -366,8 +368,7 @@ def test_localization_mode_and_exports():
 
 
 @pytest.mark.parametrize("flag", [
-    dict(enable_gnss=True), dict(ba_mesh_shards=2), dict(cam_model="kb8"),
-    dict(stereo_bf=40.0)])
+    dict(ba_mesh_shards=2), dict(cam_model="kb8"), dict(stereo_bf=40.0)])
 def test_flags_of_parts_not_ported_are_refused(flag):
     with pytest.raises(NotImplementedError, match="queue 1 item"):
         tsystem.System(tsystem.SlamConfig(**flag), device="cpu")
@@ -386,14 +387,54 @@ def test_async_mapping_and_loop_closing_build_a_system():
     assert sys_.map.kf_R.device.type == "cpu"
 
 
-def test_loop_closing_with_a_stored_atlas_session_refuses_map_merging():
-    """With an Atlas session stored, the JAX package tries map merging at the
-    first keyframe (queue 1 item 5, not ported): the port raises there."""
+def test_enable_gnss_builds_a_georeferencer():
+    """`enable_gnss` builds the Umeyama georeference with `gnss_min_kfs`;
+    fixes are re-based to the first one in float64 and queued in float32;
+    until the georeference is initialized `trajectory_geo` is the SLAM
+    trajectory; an archive starts a fresh georeference."""
+    sys_ = tsystem.System(_tcfg(enable_gnss=True, gnss_min_kfs=7), device="cpu")
+    assert isinstance(sys_.georef, GeometricReferencer) and sys_.georef.min_kfs == 7
+    assert not sys_.georef.initialized and sys_.n_gnss_ba == 0
+    sys_.grab_gnss(0.0, [4.5e6 + 0.25, 1.1e6, 320.0])
+    sys_.grab_gnss(0.1, [4.5e6 + 1.5, 1.1e6 - 2.0, 321.0])
+    assert sys_.gnss_origin.dtype == np.float64
+    np.testing.assert_array_equal(sys_.gnss_queue[1][1], np.float32([1.25, -2.0, 1.0]))
+    sys_.trajectory = [(0.0, np.eye(3), np.array([1.0, 2.0, 3.0]))]
+    np.testing.assert_array_equal(sys_.trajectory_geo(), [[1.0, 2.0, 3.0]])
+    sys_.georef.add_fix(np.zeros(3), np.zeros(3))
+    sys_.kf_gnss[0] = np.zeros(3, np.float32)
+    sys_._archive_and_new_map()
+    assert not sys_.georef._slam and not sys_.kf_gnss
+    assert tsystem.System(_tcfg(), device="cpu").georef is None
+
+
+@pytest.mark.parametrize("mode", ["sync", "async"])
+def test_loop_closing_merges_a_stored_atlas_session_at_the_first_keyframe(mode):
+    """With an Atlas session stored and loop closing on, the first keyframe
+    tries map merging before a loop closure (system.py:1037-1045): the
+    booted System's own map, archived with its database, is welded in at the
+    next keyframe (in sync mode in the keyframe frame, in async mode at the
+    swap-in of that keyframe's chain at the next frame's poll), the session
+    is consumed, the keyframe counts add up and the weld's merge edge is
+    persisted; tracking goes on OK."""
     sys_ = _booted(n_warm=16, kf_every=1)           # every frame a keyframe
-    sys_.cfg = dataclasses.replace(sys_.cfg, enable_loop_closing=True)
-    sys_.atlas.store_session(sys_.map, sys_.bank, [])
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        _feed(sys_, 16, ts=16 * DT)
+    sys_.cfg = dataclasses.replace(sys_.cfg, enable_loop_closing=True,
+                                   async_mapping=(mode == "async"))
+    nk = sys_.n_kf_host
+    sys_.atlas.store_session(sys_.map, sys_.bank, list(sys_.trajectory),
+                             db=sys_.loop_closer.db)
+    n_traj = len(sys_.trajectory)
+    for i in (16, 17):
+        st, _ = _feed(sys_, i, ts=i * DT)
+        assert st == tsystem.OK
+    lm = sys_.last_merge
+    assert lm is not None and sys_.atlas.n_maps == 0 and lm["kf"] == nk
+    # both sessions' keyframes and the new one; the map is then one short of
+    # its capacity, where no keyframe is inserted
+    assert lm["kf_off"] == nk and sys_.n_kf_host == 2 * nk + 1 == sys_.cfg.map_capacity.n_kf - 1
+    assert (int(sys_.map.loop_i[0]), int(sys_.map.loop_j[0])) == (lm["kf"] + nk, lm["cand"])
+    assert len(sys_.trajectory) == 2 * n_traj + 2
+    sys_.shutdown()
 
 
 def test_default_config_builds_the_keyframe_database():

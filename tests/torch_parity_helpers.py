@@ -192,8 +192,9 @@ def fields(x) -> dict:
 
 def copy_system_state(jsys, tsys) -> None:
     """Copy a JAX `System`'s tracker state (map, bank, view, poses, velocity
-    flag, keyframe bookkeeping, frame id, state, timestamps) into a port
-    `System`, so that both continue from the same point."""
+    flag, keyframe bookkeeping, frame id, state, timestamps) and its Atlas
+    sessions (`convert.session_from_numpy`) into a port `System`, so that
+    both continue from the same point."""
     dev = tsys.device
     tsys.map = convert.map_from_numpy(fields(jsys.map), dev)
     tsys.bank = None if jsys.bank is None else convert.bank_from_numpy(fields(jsys.bank), dev)
@@ -206,6 +207,12 @@ def copy_system_state(jsys, tsys) -> None:
                  "_prev_frame_ts", "localization_only"):
         setattr(tsys, name, getattr(jsys, name))
     tsys.trajectory = [(ts, np.array(R), np.array(t)) for ts, R, t in jsys.trajectory]
+    tsys.atlas.sessions = [
+        convert.session_from_numpy(
+            fields(s.map), {k: fields(f) for k, f in s.kf_features.items()},
+            {k: np.asarray(b) for k, b in s.kf_bindings.items()}, s.trajectory,
+            None if s.db is None else fields(s.db), dev)
+        for s in jsys.atlas.sessions]
 
 
 def jax_mlpnp_samples(key, valid, inv_sigma2, iterations, sample=6):
