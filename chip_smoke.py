@@ -5,8 +5,9 @@
 Drives the port's main paths, the per-frame monocular step, the synchronous
 keyframe step, the whole `System` from raw frames, its recovery of a lost
 track by relocalization, the mono-inertial `System`, loop closing with
-the asynchronous keyframe chain, map merging, GNSS georeferencing and the
-checkpoint, at the JAX package's default monocular configuration (480x752 image, 1200 ORB features over 8
+the asynchronous keyframe chain, map merging, GNSS georeferencing, the
+checkpoint, and the stereo, RGB-D, stereo-inertial and KB8 fisheye Systems
+(phase 11), at the JAX package's default monocular configuration (480x752 image, 1200 ORB features over 8
 levels, map capacity 256 keyframes / 24576 points / 196608 observations, a
 local view of 8192 points over 12 keyframes; window BA caps 16 / 4096 /
 12288, 6 LM steps over an 8-keyframe window, 4 triangulation neighbours, 768
@@ -164,13 +165,46 @@ new points at most):
      relocalized by a third System loaded on the card, within 0.05 world
      units of its pose.  `orb_describe`'s counter equal to the 169 frames
      extracted (78 + 78 + 12 + 1).
+ 11. the other sensors (`utils/sensor_scene.py`), each driven through its
+     entry point with the launch counters set to 0 just before its drive
+     and read just after: (a) `StereoSystem` with `config.euroc_stereo`'s
+     baseline 0.110074 and stereo_bf = fx * b on phase 6's configuration
+     and camera, bench.py's 78 frames as rectified pairs (the right camera
+     the left one shifted by the baseline along its x axis) through
+     `track_stereo`; first the first pair's depths on the card and its
+     stereo initialization on the card and on a CPU copy of the same
+     keypoints and depths (the same points from the same keypoints, in the
+     same slots, positions within 1e-4 relative).  Gates: OK from the first
+     pair with at least 100 points, OK on every frame, no reset, every
+     tracked frame at `min_track_inliers` or more, the rigid ATE (no scale)
+     below 0.025 and the Umeyama scale within 0.025 of 1 (the JAX
+     StereoSystem on the same frames on the CPU: 0.0123 and 1.0119;
+     tests/test_torch_stereo.py::test_phase_11a_stereo_on_bench_path),
+     `orb_describe` 2 x 78.  (b) `RGBDSystem` on the same left frames with
+     the plane's depth per pixel through `track_rgbd`: (a)'s gates with the
+     ATE below 0.005 and the scale within 0.005 of 1 (JAX: 0.0023, 1.0010),
+     `orb_describe` 78.  (c) `StereoInertialSystem` on the raw-KB8 drive of
+     tests/test_fisheye_direct_stereo.py:137-234 (its world, motion, 200 Hz
+     accelerometer, rig of baseline 0.2 and 70 frames) with the TUM-VI
+     camera (TUM-VI cam0's KB8 at 512x512, `tumvi_mono`'s 1000 features):
+     the test's gates (no reset, OK at the end, the IMU initialized, rigid
+     RMSE < 0.10, |s - 1| < 0.05; the JAX System on the CPU: 0.0111,
+     1.0224), `orb_describe` 2 x 70.  (d) `System` with `tumvi_mono`'s KB8
+     camera and bench.py's System settings on fisheye views of bench.py's
+     78 frames (`render_fisheye_frames`: supersampled, a field stop at 0.9
+     rad) through `track_monocular`: phase 6's gates with initialization by
+     frame 8 (JAX on the CPU: frame 5) and an ATE below 0.08 of the span
+     (JAX: 0.0055), `orb_describe` 78.  Per part: the host-clock median per
+     frame kind, one profiled frame per kind (kernels, device ms), the
+     blocking reads per frame kind with their sites.
 
 Each phase prints one line (phase 6 three more before it, phase 7 four more
 after it: kernels per call and device time of `add_keyframe` and of the two
 halves of an attempt, from torch.profiler's kernel records; phase 8 one per
 frame kind after it; phase 9 one per part, one per timed stage and its
 total; phase 10 one per part, 10a's stages and read sites after it, and its
-total); the kernels' JSON
+total; phase 11 a line for the first pair, then per part one line and
+one per frame kind, and its total); the kernels' JSON
 line and the card's line precede the last line, `{"ok": true, "device":
 {...}}`.  Any failure raises and exits non-zero before it.
 """
@@ -1157,6 +1191,197 @@ def print_atlas(ap: dict) -> None:
           f"({ck['reloc_ms']:.1f} ms)", flush=True)
 
 
+class _FrameKinds:
+    """`sensor_scene.drive` hooks for phase 11: each frame's kind
+    (`sensor_scene.frame_kind`), its blocking reads (the sites that
+    `sync_census._sync_warnings` appends to `found`), and one profiled frame
+    (`profile_keyframe.DeviceWork`) of each kind that `expected(fi, sys_)`
+    foresees, from frame 10 on."""
+
+    def __init__(self, expected, found: list):
+        self.expected, self.found = expected, found
+        self.kinds: dict = {}          # kind -> positions in the drive
+        self.reads: dict = {}          # kind -> [reads per unprofiled frame]
+        self.sites: dict = {}          # kind -> Counter of read sites
+        self.profiled: dict = {}       # kind -> DeviceWork
+        self._work = None
+        self._n = 0
+
+    def wrap(self, fi, sys_):
+        from orbslam3_tpu_torch.utils import profile_keyframe
+        self.found.clear()
+        kind = self.expected(fi, sys_)
+        self._work = None
+        if kind is not None and kind not in self.profiled and fi >= 10:
+            self._work = profile_keyframe.DeviceWork(kind)
+        return self._work
+
+    def on_frame(self, fi, sys_, was, was_init, n_kf):
+        from orbslam3_tpu_torch.utils import sensor_scene as ss
+        kind = ss.frame_kind(sys_, was, was_init, n_kf)
+        self.kinds.setdefault(kind, []).append(self._n)
+        self._n += 1
+        w = self._work
+        if w is not None:
+            w.frame = fi
+            if w.kind == kind:
+                self.profiled[kind] = w
+            return
+        self.reads.setdefault(kind, []).append(len(self.found))
+        self.sites.setdefault(kind, collections.Counter()).update(self.found)
+
+    def summary(self, seconds: list) -> dict:
+        prof = {w.frame for w in self.profiled.values()}
+        out = {}
+        for kind, pos in self.kinds.items():
+            secs = [seconds[n] for n in pos if n not in prof] or [seconds[n] for n in pos]
+            w = self.profiled.get(kind)
+            reads = self.reads.get(kind, [])
+            out[kind] = dict(frames=len(pos), median_ms=statistics.median(secs) * 1e3,
+                             launches=None if w is None else w.launches,
+                             device_ms=None if w is None else w.device_ms,
+                             profiled_frame=None if w is None else w.frame,
+                             reads=statistics.mean(reads) if reads else None,
+                             sites=dict(self.sites.get(kind, collections.Counter()).most_common(4)))
+        return out
+
+
+def _expected_depth_kind(fi, sys_):
+    """The kind that a depth sensor's or a monocular System's next frame
+    should turn out to be (None before initialization)."""
+    from orbslam3_tpu_torch.pipeline import system
+    if sys_.state != system.OK:
+        return None
+    gap = sys_.frame_id + 1 - sys_.last_kf_id
+    return "keyframe frame" if gap >= sys_.cfg.max_frames_between_kf else "tracked frame"
+
+
+def first_pair_check(slam, scfg, img_l, img_r, dev) -> dict:
+    """11a's first pair: its depths on the card, then the stereo
+    initialization on the card and on a CPU copy of the same keypoints and
+    depths.  The same points from the same keypoints in the same slots, the
+    same observations, positions within 1e-4 relative; raises otherwise."""
+    import torch
+    from orbslam3_tpu_torch.pipeline import stereo_system
+
+    slam = dataclasses.replace(slam, enable_relocalization=False)
+    card = stereo_system.StereoSystem(slam, scfg, device=dev)
+    cpu = stereo_system.StereoSystem(slam, scfg, device="cpu")
+    ff = card._pair_depth(img_l, img_r, None, None)
+    cpu._depth = _to(card._depth, "cpu")
+    for sys_, f in ((card, ff), (cpu, _to(ff, "cpu"))):
+        sys_.frame_id = 0
+        sys_._stereo_initialize(f, 0.0)
+    a, b = card.map, cpu.map
+    bad = [n for n in ("n_pt", "n_obs", "pt_valid", "obs_pt", "obs_kf", "obs_valid", "pt_desc")
+           if not torch.equal(getattr(a, n).cpu(), getattr(b, n))]
+    if not torch.equal(card.bank.kp_pt.cpu(), cpu.bank.kp_pt):
+        bad.append("bindings")
+    v = b.pt_valid
+    rel = float(((a.pt_xyz.cpu() - b.pt_xyz).norm(dim=1)[v] / b.pt_xyz.norm(dim=1)[v]).max())
+    if bad or not rel <= 1e-4 or int(b.n_pt) < 100:
+        _fail(f"11a's first pair: card and CPU differ in {bad}, points within {rel:.3g}, "
+              f"{int(b.n_pt)} points")
+    return dict(n_points=int(b.n_pt), rel=rel)
+
+
+def sensors_phase(scfg, sframes, dev) -> dict:
+    """Phase 11 on device `dev`: (a) the stereo, (b) the RGB-D, (c) the
+    raw-fisheye stereo-inertial and (d) the KB8 monocular System, each
+    driven through its entry point with its gates (`utils/sensor_scene.py`),
+    the launch counters set to 0 just before each drive and read just
+    after; raises on a failed gate.  Returns the parts' numbers."""
+    import torch
+    from orbslam3_tpu_torch.ops import orb_patches
+    from orbslam3_tpu_torch.pipeline import (rgbd_system, stereo_inertial_system,
+                                             stereo_system, system)
+    from orbslam3_tpu_torch.utils import imu_scene
+    from orbslam3_tpu_torch.utils import seeded_scene as scene
+    from orbslam3_tpu_torch.utils import sensor_scene as ss
+    from orbslam3_tpu_torch.utils import sync_census
+
+    t0 = time.perf_counter()
+    right, depth = ss.render_right_frames(scfg), ss.depth_images(scfg)
+    fcfg = ss.fisheye_config()
+    fish = ss.render_fisheye_frames(scfg, fcfg)
+    si = ss.FisheyeSIScene()
+    si_imgs = si.render()
+    out = {"render_s": time.perf_counter() - t0}
+    slam, st = ss.stereo_configs(scfg)
+    out["first_pair"] = first_pair_check(slam, st, sframes[scfg.track_frames[0]],
+                                         right[scfg.track_frames[0]], dev)
+    n = len(scfg.track_frames)
+    si_cfg = si.configs()
+
+    def fish_gates(sys_, d):
+        return scene.check_system_gates(sys_, scene.SystemDrive(*d[:6]),
+                                        init_by=ss.FISHEYE_INIT_BY,
+                                        max_ate_ratio=ss.FISHEYE_MAX_ATE_RATIO)
+
+    parts = (
+        ("stereo", lambda: stereo_system.StereoSystem(slam, st, device=dev),
+         ss.stereo_step(sframes, right), scfg.track_frames, 2 * n, _expected_depth_kind,
+         lambda s_, d: ss.check_depth_gates(s_, d, ss.STEREO_MAX_ATE, ss.STEREO_MAX_SCALE_ERR)),
+        ("rgbd", lambda: rgbd_system.RGBDSystem(slam, st, device=dev),
+         ss.rgbd_step(sframes, depth), scfg.track_frames, n, _expected_depth_kind,
+         lambda s_, d: ss.check_depth_gates(s_, d, ss.RGBD_MAX_ATE, ss.RGBD_MAX_SCALE_ERR)),
+        ("stereo_inertial",
+         lambda: stereo_inertial_system.StereoInertialSystem(*si_cfg, device=dev),
+         ss.fisheye_si_step(si, si_imgs), range(si.frames), 2 * si.frames,
+         lambda fi, s_: imu_scene.expected_kind(s_, fi),
+         lambda s_, d: ss.check_fisheye_si_gates(si, s_, d)),
+        ("kb8_mono", lambda: system.System(fcfg, device=dev), ss.mono_step(fish),
+         scfg.track_frames, n, _expected_depth_kind, fish_gates),
+    )
+    found: list = []
+    for name, make, step, frames, n_extract, expected, gates in parts:
+        t0 = time.perf_counter()
+        sys_ = make()
+        fk = _FrameKinds(expected, found)
+        orb_patches.reset_counters()
+        with sync_census._sync_warnings(found):
+            d = ss.drive(sys_, frames, step, sync=torch.cuda.synchronize, wrap=fk.wrap,
+                         on_frame=fk.on_frame)
+        launches = orb_patches.launch_counts()
+        bad, stats = gates(sys_, d)
+        if launches != {"ic_moments": 0, "brief_desc": 0, "orb_describe": n_extract}:
+            bad.append(f"launch counters {launches} for {n_extract} extractions")
+        for what, tensor in (("map", sys_.map.pt_xyz), ("bank", sys_.bank.xy)):
+            if tensor.device.type != "cuda":
+                bad.append(f"the {what} is on {tensor.device}")
+        if bad:
+            _fail(f"sensors 11 {name}: " + "; ".join(bad))
+        out[name] = dict(stats=stats, launches=launches, kinds=fk.summary(d.seconds),
+                         frames=len(d.frames), drive_s=sum(d.seconds),
+                         part_s=time.perf_counter() - t0)
+        del sys_
+    return out
+
+
+def print_sensors(sp: dict) -> None:
+    """Phase 11's lines."""
+    fp = sp["first_pair"]
+    labels = {"stereo": "11a stereo (bench.py's 78 frames as rectified pairs, b = 0.110074)",
+              "rgbd": "11b RGB-D (the 78 left frames and the plane's depth)",
+              "stereo_inertial": "11c raw-fisheye stereo-inertial (TUM-VI camera, 70 frames)",
+              "kb8_mono": "11d KB8 monocular (TUM-VI camera, bench.py's 78 frames)"}
+    print(f"sensors: rendering {sp['render_s']:.1f} s; 11a's first pair on the card and on "
+          f"the CPU: the same {fp['n_points']} points, positions within {fp['rel']:.3g} "
+          f"relative", flush=True)
+    for name, label in labels.items():
+        p = sp[name]
+        st = {k: (round(v, 6) if isinstance(v, float) else v) for k, v in p["stats"].items()}
+        print(f"sensors {label}: {p['frames']} frames in {p['drive_s']:.1f} s (part "
+              f"{p['part_s']:.1f} s); gates held: {st}; launches {p['launches']}", flush=True)
+        for kind, k in p["kinds"].items():
+            la = "not measured" if k["launches"] is None else f"{k['launches']} kernels"
+            dm = "" if k["device_ms"] is None else f", {k['device_ms']:.2f} ms of device time"
+            rd = "n/a" if k["reads"] is None else f"{k['reads']:.2f}"
+            print(f"  {kind}: {k['frames']} frames, median {k['median_ms']:.1f} ms on the host "
+                  f"clock; frame {k['profiled_frame']} profiled: {la}{dm}; blocking reads per "
+                  f"frame {rd} {k['sites']}", flush=True)
+
+
 def patch_kernel_work(sel, angle) -> dict:
     """Per kernel, the bytes and operations that these keypoints need: the
     distinct pixels the windows touch (each read once), the keypoints, the
@@ -1474,6 +1699,12 @@ def main() -> int:
     print(f"atlas: phase {time.perf_counter() - t0:.1f} s; launches {atlas_launches}",
           flush=True)
 
+    # 11. the other sensors -------------------------------------------------
+    t0 = time.perf_counter()
+    sp = sensors_phase(scfg, sframes, dev)
+    print_sensors(sp)
+    print(f"sensors: phase {time.perf_counter() - t0:.1f} s", flush=True)
+
     # report ----------------------------------------------------------------
     src = "orbslam3_tpu_torch/csrc/orb_patches.cu"
     replaces = {"ic_moments": "orbslam3_tpu/ops/pallas_patches.py:58",
@@ -1488,7 +1719,9 @@ def main() -> int:
          "launches_per_path": {"tracking": launches[k], "keyframe": kf_launches[k],
                                "system": sys_launches[k],
                                "relocalization": reloc_launches[k], "inertial": il[k],
-                               "loop": loop_launches[k], "merge_gnss": atlas_launches[k]},
+                               "loop": loop_launches[k], "merge_gnss": atlas_launches[k],
+                               **{p: sp[p]["launches"][k] for p in
+                                  ("stereo", "rgbd", "stereo_inertial", "kb8_mono")}},
          "max_abs_err": err[k], "ms": ev_ms[k], "plain_ms": plain_ms[k],
          "bound_ms": work[k]["bound_ms"], "bound_by": work[k]["bound_by"],
          "library_ms": None, "device_ms": dev_ms[k], "bytes": work[k]["bytes"],

@@ -186,8 +186,8 @@ class VITrackOut(NamedTuple):
 
 
 class InertialSystem(base.System):
-    # stereo-inertial sets True: the scale is metric already and the init
-    # solves gravity, bias and velocities only (stereo is queue 1 item 6)
+    # the stereo-inertial System sets True: the scale is metric already and
+    # the init solves gravity, bias and velocities only
     imu_fix_scale = False
 
     def __init__(self, config: base.SlamConfig, icfg: InertialConfig, device=None,

@@ -72,15 +72,26 @@ def triangulate_new_points(ff_cur: FeatureFrame, ff_prev: FeatureFrame,
     epipolar constraint (3.84 sigma2), parallax (cos < 0.9998), positive
     depth in both views, reprojection chi2 < 5.991 sigma2 in both views,
     and scale consistency between the two octaves (factor 1.5)."""
-    if cam_model != cameras.PINHOLE:
-        raise NotImplementedError(
-            "triangulation in ray space (KB8 fisheye) comes with the other "
-            "sensors, queue 1 item 6")
     sf = _scale_factors(scale_factor, n_levels, ff_cur.xy.device)
     sigma2 = sf ** 2
-    F_cp = fundamental_from_poses(R_cur, t_cur, R_prev, t_prev, K4)
-    epi = matching.epipolar_mask(ff_cur.xy, ff_prev.xy, F_cp,
-                                 sigma2[_lv(ff_prev.octave, n_levels)])
+    if cam_model == cameras.PINHOLE:
+        F_cp = fundamental_from_poses(R_cur, t_cur, R_prev, t_prev, K4)
+        epi = matching.epipolar_mask(ff_cur.xy, ff_prev.xy, F_cp,
+                                     sigma2[_lv(ff_prev.octave, n_levels)])
+    else:
+        # fisheye (KB8): the gate in ray space, not on distorted pixels (the
+        # reference checks bearings, KannalaBrandt8.cpp:306): bearings on a
+        # unit virtual pinhole (the z = 1 plane), the pixel sigma scaled by
+        # the focal length
+        b_c = cameras.unproject(cam_model, cam_params, ff_cur.xy)
+        b_p = cameras.unproject(cam_model, cam_params, ff_prev.xy)
+        n_c = b_c[:, :2] / torch.clamp_min(b_c[:, 2:3], 1e-3)
+        n_p = b_p[:, :2] / torch.clamp_min(b_p[:, 2:3], 1e-3)
+        F_cp = fundamental_from_poses(R_cur, t_cur, R_prev, t_prev,
+                                      cameras.unit_pinhole(n_c.device))
+        f_approx = cam_params[0]
+        epi = matching.epipolar_mask(
+            n_c, n_p, F_cp, sigma2[_lv(ff_prev.octave, n_levels)] / (f_approx * f_approx))
     mask = epi & cur_unmatched[:, None] & prev_unmatched[None, :] & \
         ff_cur.valid[:, None] & ff_prev.valid[None, :]
     mm = matching.match_nn(ff_cur.desc, ff_prev.desc, mask,

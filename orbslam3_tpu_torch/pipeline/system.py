@@ -64,8 +64,13 @@ on every keyframe with a fix) as a "gba" pending chain;
 `trajectory_geo` gives the trajectory in the geo frame.
 `slam_map/checkpoint.py` saves and restores a `System`.
 
-Not ported yet, and refused by `System` when the configuration asks for
-them: the sharded BA, non-pinhole cameras and stereo.
+The camera is a pinhole or a Kannala-Brandt-8 fisheye (`cam_model="kb8"`:
+two-view initialization runs on bearings, triangulation gates in ray
+space).  The stereo, RGB-D and stereo-inertial Systems
+(`stereo_system.py`, `rgbd_system.py`, `stereo_inertial_system.py`) build on
+this class through its hooks `_frame_kp_ur` (the keyframe's right-u rows) and
+`_insert_keyframe`.  Not ported yet, and refused by `System` when the
+configuration asks for it: the sharded BA.
 
 Everything stays on the device except where the reference itself reads a
 value back: per frame the inlier count (read together with the pose that
@@ -93,7 +98,7 @@ from ..features import extractor
 from ..features.extractor import FeatureFrame, OrbParams
 from ..geometry import georef as georef_mod
 from ..geometry import twoview
-from ..ops import lie, matching
+from ..ops import cameras, lie, matching
 from ..slam_map import atlas as atlas_mod
 from ..slam_map import feature_bank as fb
 from ..slam_map import state as mapstate
@@ -439,14 +444,9 @@ def renorm_init(m: mapstate.MapState, kf2) -> mapstate.MapState:
 
 def _check_ported(cfg: SlamConfig) -> None:
     """Refuse a configuration that asks for a part not ported yet."""
-    asked = [
-        (cfg.ba_mesh_shards > 1, "ba_mesh_shards > 1 (the sharded BA, queue 1 item 9)"),
-        (cfg.cam_model != "pinhole", f"cam_model {cfg.cam_model!r} (queue 1 item 6)"),
-        (cfg.stereo_bf > 0.0, "stereo_bf > 0 (stereo, queue 1 item 6)"),
-    ]
-    for flag, what in asked:
-        if flag:
-            raise NotImplementedError(f"not ported yet: {what}")
+    if cfg.ba_mesh_shards > 1:
+        raise NotImplementedError(
+            "not ported yet: ba_mesh_shards > 1 (the sharded BA, queue 1 item 9)")
 
 
 class System:
@@ -538,9 +538,9 @@ class System:
         if self.bank is None or self.bank.xy.shape[1] != ff.capacity:
             self.bank = fb.empty_bank(self.cfg.map_capacity.n_kf, ff.capacity, self.device)
 
-    def _bank_store(self, kf_idx: int, ff: FeatureFrame, kp_pt):
+    def _bank_store(self, kf_idx: int, ff: FeatureFrame, kp_pt, ur=None):
         self._ensure_bank(ff)
-        self.bank = fb.set_frame(self.bank, kf_idx, ff, kp_pt)
+        self.bank = fb.set_frame(self.bank, kf_idx, ff, kp_pt, ur=ur)
 
     def _refresh_view(self) -> None:
         """Rebuild the bounded local-map tracking view around the last
@@ -656,12 +656,28 @@ class System:
             return
         # matched pairs: ref kp i <-> cur kp mm.idx[i]
         j = torch.clamp_min(mm.idx, 0).long()
-        res = twoview.reconstruct(self.ref_ff.xy, ff.xy[j], mm.valid, self.cam_params,
-                                  generator=self.generator)
+        res = self._reconstruct(self.ref_ff.xy, ff.xy[j], mm.valid)
         success, used_h = torch.stack([res.success, res.used_homography]).tolist()
         if not success:
             return
         self._create_initial_map(ff, mm, res, ts, used_homography=used_h)
+
+    def _reconstruct(self, xy1, xy2, valid, idx=None) -> twoview.TwoViewResult:
+        """Two-view reconstruction of matched keypoints (`idx`: the RANSAC
+        samples, None to draw them).  A non-pinhole camera (KB8) runs the
+        F / H machinery on bearings over a unit virtual pinhole with the
+        pixel sigma scaled by the focal length (system.py:212-228; the
+        reference's KannalaBrandt8 path reconstructs from rays)."""
+        if self.cfg.cam_model == "pinhole":
+            return twoview.reconstruct(xy1, xy2, valid, self.cam_params, idx=idx,
+                                       generator=self.generator)
+        b1 = cameras.unproject(self.cfg.cam_model, self.cam_params, xy1)
+        b2 = cameras.unproject(self.cfg.cam_model, self.cam_params, xy2)
+        # 1 / fx in float32, as the JAX program divides its float32 parameter
+        sigma = float(np.float32(1.0) / np.float32(self.cfg.cam_params[0]))
+        return twoview.reconstruct(b1[:, :2] / b1[:, 2:3], b2[:, :2] / b2[:, 2:3], valid,
+                                   cameras.unit_pinhole(self.device), idx=idx,
+                                   generator=self.generator, sigma=sigma)
 
     def _create_initial_map(self, ff: FeatureFrame, mm, res, ts: float,
                             used_homography: bool | None = None):

@@ -9,7 +9,7 @@ is the JAX package's, in both directions:
   * `path + ".extras.pkl"` is a pickle of numpy arrays and Python values:
     `ff_<k>` (a keyframe's FeatureFrame fields) and `bind_<k>` (its
     keypoint -> point bindings) for every keyframe that is not culled,
-    `ur_<k>` (stereo right-u rows, written by the JAX stereo Systems),
+    `ur_<k>` (stereo right-u rows, written for the stereo Systems),
     `R_cur`, `t_cur`, `frame_id`, `last_kf_id`, and for an inertial System
     `inertial` (bias, velocity, the initialization flags, the
     preintegration chain's keyframe pairs and raw buffers, the IMU queues).
@@ -83,6 +83,8 @@ def save_system(path: str, system) -> None:
     extras = {}
     m = system.map
     nk = system.n_kf_host
+    # the stereo right-u rows of a stereo System (JAX keeps them in kf_ur)
+    stereo = system.cfg.stereo_bf > 0.0 or hasattr(system, "scfg")
     if system.bank is not None and nk:
         valid = m.kf_valid[:nk].cpu().numpy()
         rows = {k: v[:nk].cpu().numpy() for k, v in system.bank._asdict().items()}
@@ -92,6 +94,8 @@ def save_system(path: str, system) -> None:
                 octave=rows["octave"][k], angle=rows["angle"][k],
                 desc=rows["desc"][k].view(np.uint32), valid=rows["valid"][k])
             extras[f"bind_{k}"] = rows["kp_pt"][k]
+            if stereo:
+                extras[f"ur_{k}"] = rows["ur"][k]
     R_cw, t_cw = system._pose_numpy()
     extras["R_cur"] = np.array(R_cw, np.float32)
     extras["t_cur"] = np.array(t_cw, np.float32)

@@ -2,14 +2,14 @@
 
 numpy in, numpy out; nothing here imports JAX.  A test fills these from
 `jax.device_get(x)._asdict()` so that both sides compute on the same map,
-view, feature frame, feature bank, match set, two-view result, keyframe
-database, codebook, preintegration, factor stack or frame prior;
+view, feature frame, stereo depth, feature bank, match set, two-view result,
+keyframe database, codebook, preintegration, factor stack or frame prior;
 `set_inertial_state` gives an `InertialSystem` the inertial bookkeeping of
 another one; `bank_from_frames` and `session_from_numpy` turn the JAX
-`System`'s per-keyframe host dictionaries (features, bindings) into the
-port's feature bank, the latter for a whole Atlas session (map, bank,
-trajectory, database), and `slam_map/checkpoint.py` rebuilds a restored
-bank with the former.  uint32 descriptor and codebook words cross as int32
+`System`'s per-keyframe host dictionaries (features, bindings, and a stereo
+session's right-u rows) into the port's feature bank, the latter for a
+whole Atlas session (map, bank, trajectory, database), and
+`slam_map/checkpoint.py` rebuilds a restored bank with the former.  uint32 descriptor and codebook words cross as int32
 bit patterns (`.view(np.int32)`), the port's descriptor format.
 """
 
@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..features.extractor import FeatureFrame
+from ..features.stereo import StereoDepth
 from ..geometry.twoview import TwoViewResult
 from ..ops.imu import Preintegrated
 from ..ops.matching import Matches
@@ -82,15 +83,22 @@ def bank_from_frames(n_kf: int, frames: dict, bindings: dict, device="cpu",
 
 
 def session_from_numpy(map_fields: dict, frames: dict, bindings: dict, trajectory: list,
-                       db_fields: dict | None = None, device="cpu") -> MapSession:
-    """A JAX Atlas session (its map's fields, the `kf_features` and
-    `kf_bindings` dictionaries as numpy, the trajectory and its keyframe
-    database's fields) as the port's `MapSession`."""
+                       db_fields: dict | None = None, device="cpu",
+                       ur: dict | None = None) -> MapSession:
+    """A JAX Atlas session (its map's fields, the `kf_features`,
+    `kf_bindings` and, for a stereo session, `kf_ur` dictionaries as numpy,
+    the trajectory and its keyframe database's fields) as the port's
+    `MapSession`."""
     m = map_from_numpy(map_fields, device)
     return MapSession(
-        map=m, bank=bank_from_frames(m.kf_R.shape[0], frames, bindings, device),
+        map=m, bank=bank_from_frames(m.kf_R.shape[0], frames, bindings, device, ur),
         trajectory=[(ts, np.array(R), np.array(t)) for ts, R, t in trajectory],
         db=None if db_fields is None else db_from_numpy(db_fields, device))
+
+
+def stereo_depth_from_numpy(fields: dict, device="cpu") -> StereoDepth:
+    """A JAX `StereoDepth` (ur, depth, valid) as the port's."""
+    return _build(StereoDepth, fields, device)
 
 
 def matches_from_numpy(fields: dict, device="cpu") -> Matches:

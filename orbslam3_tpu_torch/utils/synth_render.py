@@ -3,7 +3,7 @@
 A copy of the functions of `orbslam3_tpu/utils/synth_render.py` that the
 port's drives need: importing that module pulls in JAX through
 `orbslam3_tpu/__init__.py`, and the port runs where JAX is not installed.
-It renders pinhole views of a textured ground plane (z = 0, camera above
+It renders pinhole or fisheye (`kb8_rays`) views of a textured ground plane (z = 0, camera above
 looking down) by inverse mapping: pixel ray -> plane intersection ->
 bilinear texture sample.  `render_plane` here defaults to no mesas, so depth is
 the plane's.
@@ -38,6 +38,29 @@ def pinhole_rays(K4, hw) -> np.ndarray:
     return np.stack([(u - cx) / fx, (v - cy) / fy, np.ones_like(u)], -1)
 
 
+def kb8_rays(params, hw) -> np.ndarray:
+    """(H, W, 3) camera-frame unit ray directions for a Kannala-Brandt
+    fisheye (params = fx fy cx cy k1..k4): per-pixel Newton inversion of
+    theta_d = theta (1 + k1 th^2 + ... + k4 th^8)."""
+    h, w = hw
+    fx, fy, cx, cy, k1, k2, k3, k4 = [float(v) for v in params]
+    u, v = np.meshgrid(np.arange(w, dtype=np.float32),
+                       np.arange(h, dtype=np.float32))
+    xd = (u - cx) / fx
+    yd = (v - cy) / fy
+    rd = np.sqrt(xd * xd + yd * yd)
+    th = rd.copy()
+    for _ in range(10):
+        t2 = th * th
+        f = th * (1 + k1 * t2 + k2 * t2 ** 2 + k3 * t2 ** 3 +
+                  k4 * t2 ** 4) - rd
+        df = 1 + 3 * k1 * t2 + 5 * k2 * t2 ** 2 + 7 * k3 * t2 ** 3 + \
+            9 * k4 * t2 ** 4
+        th = th - f / np.maximum(df, 1e-6)
+    s = np.where(rd > 1e-9, np.sin(th) / np.maximum(rd, 1e-9), 1.0)
+    return np.stack([xd * s, yd * s, np.cos(th)], -1).astype(np.float32)
+
+
 def render_plane(R_cw: np.ndarray, t_cw: np.ndarray, K4, hw,
                  texture: np.ndarray, tex_scale: float = 100.0,
                  mesas=(), rays: np.ndarray | None = None) -> np.ndarray:
@@ -45,6 +68,8 @@ def render_plane(R_cw: np.ndarray, t_cw: np.ndarray, K4, hw,
     elevated textured mesas (z<0 rectangles (x0, x1, y0, y1, z)).
 
     R_cw/t_cw: world->camera.  tex_scale: texture pixels per world unit.
+    `rays`: optional (H, W, 3) camera-frame ray directions (`kb8_rays` for
+    a fisheye view); by default the pinhole rays of K4.
     Returns (H, W) float32 image in [0, 255]; rays missing all surfaces
     are 0.
     """

@@ -2,7 +2,9 @@
 keyframe step on the card against the same step on the CPU, the `System`
 from raw frames on the card, the 65536-word vocabulary and a relocalization
 on the card, the VI BA, the COO BA and the post-loop GBA, a loop closure, a
-map merge and the GNSS BA on the card against the CPU.
+map merge and the GNSS BA on the card against the CPU; a stereo pair through
+`track_stereo` on the card against the CPU, `orb_describe`'s launches per
+stereo frame, and `fisheye_stereo_match` on the card against the CPU.
 
 These need an NVIDIA GPU with nvcc and are marked `gpu`; without a card they
 skip.  With a GPU: `python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest`
@@ -494,3 +496,97 @@ def test_gnss_ba_on_the_card_matches_the_cpu(dev):
     cr = (-ref.kf_R.transpose(1, 2) @ ref.kf_t[..., None])[..., 0]
     assert float((cg[:3] - cr[:3]).abs().max()) < 1e-3 * extent
     assert float((got.pt_xyz.cpu() - ref.pt_xyz).abs().max()) < 1e-3 * extent
+
+
+def _stereo_pair(n_frames=1):
+    """bench.py's first frames as rectified pairs (`sensor_scene`) and the
+    StereoSystem configuration of chip_smoke.py's phase 11a, without the
+    keyframe database."""
+    import dataclasses
+    from orbslam3_tpu_torch.utils import sensor_scene
+    cfg = dataclasses.replace(ss.SceneConfig(), seed_frames=(), track_frames=tuple(range(n_frames)))
+    slam, scfg = sensor_scene.stereo_configs(cfg, enable_relocalization=False)
+    return ss.render_frames(cfg), sensor_scene.render_right_frames(cfg), slam, scfg
+
+
+def test_track_stereo_on_the_card_matches_the_cpu(dev):
+    """One pair through `track_stereo` on the card (extraction, stereo
+    matching, the SSD refinement, the stereo initialization) and on the CPU
+    from the card's keypoints and the same images: the same depths (valid
+    equal, depth within 1e-4 relative), the same points from the same
+    keypoints (integer fields of the map and the bindings equal), positions
+    within 1e-4 relative."""
+    from orbslam3_tpu_torch.pipeline import stereo_system
+    left, right, slam, scfg = _stereo_pair()
+    card = stereo_system.StereoSystem(slam, scfg, device=dev)
+    cpu = stereo_system.StereoSystem(slam, scfg, device="cpu")
+    st, _ = card.track_stereo(left[0], right[0], 0.0)
+    ffs = [extractor.extract(torch.from_numpy(im).to(dev), slam.orb) for im in (left[0], right[0])]
+    cpu_ff = [type(f)(*(x.cpu() for x in f)) for f in ffs]
+    sc, _ = cpu.track_stereo(left[0], right[0], 0.0, features_l=cpu_ff[0], features_r=cpu_ff[1])
+    assert st == sc == system.OK
+    np.testing.assert_array_equal(card._depth.valid.cpu().numpy(), cpu._depth.valid.numpy())
+    ok = cpu._depth.valid.numpy()
+    np.testing.assert_allclose(card._depth.depth.cpu().numpy()[ok], cpu._depth.depth.numpy()[ok],
+                               rtol=1e-4)
+    for name in ("n_pt", "n_obs", "pt_valid", "obs_pt", "obs_kf", "obs_valid"):
+        assert torch.equal(getattr(card.map, name).cpu(), getattr(cpu.map, name)), name
+    assert torch.equal(card.bank.kp_pt.cpu(), cpu.bank.kp_pt)
+    v = cpu.map.pt_valid
+    a, b = card.map.pt_xyz.cpu()[v], cpu.map.pt_xyz[v]
+    assert int(v.sum()) > 100
+    assert bool(((a - b).norm(dim=1) <= 1e-4 * b.norm(dim=1)).all())
+
+
+def test_orb_describe_launches_twice_per_stereo_frame(dev):
+    """`track_stereo` extracts both images: `orb_describe` twice per pair,
+    the single kernels never; features handed in are not extracted again."""
+    from orbslam3_tpu_torch.pipeline import stereo_system
+    left, right, slam, scfg = _stereo_pair(3)
+    sys_ = stereo_system.StereoSystem(slam, scfg, device=dev)
+    orb_patches.reset_counters()
+    for i in range(3):
+        sys_.track_stereo(left[i], right[i], i / 10.0)
+    assert orb_patches.launch_counts() == {"ic_moments": 0, "brief_desc": 0, "orb_describe": 6}
+    assert sys_.state == system.OK
+    ff = extractor.extract(torch.from_numpy(left[2]).to(dev), slam.orb)
+    orb_patches.reset_counters()
+    sys_.track_stereo(None, None, 0.3, features_l=ff, features_r=ff)
+    assert orb_patches.launch_counts()["orb_describe"] == 0
+
+
+def test_fisheye_stereo_match_on_the_card_matches_the_cpu(dev):
+    """`fisheye_stereo_match` on the TUM-VI rig of phase 11c with 600 points
+    out to 80 degrees off the axis: the same matches on the card as on the
+    CPU, X within 1e-4 of its distance, every X finite."""
+    from orbslam3_tpu_torch.features.extractor import FeatureFrame
+    from orbslam3_tpu_torch.features import stereo
+    from orbslam3_tpu_torch.ops import cameras
+    from orbslam3_tpu_torch.utils import sensor_scene
+    scn = sensor_scene.FisheyeSIScene()
+    R_rel, t_rel, _ = scn.rig()
+    rng = np.random.default_rng(7)
+    n = 600
+    th = np.arccos(rng.uniform(np.cos(1.4), 1.0, n))
+    ph = rng.uniform(0, 2 * np.pi, n)
+    d = rng.uniform(1.0, 3.0, n)
+    X = np.stack([np.sin(th) * np.cos(ph) * d, np.sin(th) * np.sin(ph) * d, np.cos(th) * d], 1)
+    P = torch.tensor(scn.kb8, dtype=torch.float32)
+    desc = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (n, 8), dtype=np.int64).astype(np.int32))
+
+    def frame(Xc):
+        uv = cameras.kb8_project(P, torch.from_numpy(Xc.astype(np.float32)))
+        uv = uv + 0.2 * torch.from_numpy(rng.standard_normal((n, 2)).astype(np.float32))
+        return FeatureFrame(xy=uv, response=torch.ones(n), octave=torch.zeros(n, dtype=torch.int32),
+                            angle=torch.zeros(n), desc=desc, valid=torch.ones(n, dtype=torch.bool))
+
+    f_l, f_r = frame(X), frame(X @ R_rel.T + t_rel)
+    args = [P, P, torch.from_numpy(R_rel.astype(np.float32)), torch.from_numpy(t_rel.astype(np.float32))]
+    ref = stereo.fisheye_stereo_match(f_l, f_r, *args)
+    to = lambda f: type(f)(*(x.to(dev) for x in f))
+    got = stereo.fisheye_stereo_match(to(f_l), to(f_r), *(a.to(dev) for a in args))
+    assert torch.equal(got.valid.cpu(), ref.valid) and torch.equal(got.ridx.cpu(), ref.ridx)
+    assert int(ref.valid.sum()) > 0.5 * n
+    scale = ref.X.norm(dim=1).clamp_min(1.0)
+    assert bool(((got.X.cpu() - ref.X).norm(dim=1) <= 1e-4 * scale).all())
+    assert bool(torch.isfinite(got.X).all())

@@ -112,10 +112,16 @@ def test_triangulate_dlt_matches_jax_and_the_svd_oracle():
 
 
 def test_unproject_matches_jax_and_kb8_raises():
+    """Both models' unprojection through the dispatch against JAX: the
+    pinhole ray within 1e-6, the KB8 bearing (10 Newton steps) within 1e-5
+    of its components; an unknown model raises, as in JAX."""
     uv = np.random.default_rng(1).uniform(0, 300, (50, 2)).astype(np.float32)
     _close(tcam.unproject("pinhole", _t(K4), _t(uv)), jcam.unproject("pinhole", K4, uv), 1e-6)
-    with pytest.raises(NotImplementedError):
-        tcam.unproject("kb8", _t(K4), _t(uv))
+    kb8 = np.array([190.98, 190.97, 254.93, 256.90, 0.00348, 0.000715, -0.00205, 0.000203],
+                   np.float32)
+    _close(tcam.unproject("kb8", _t(kb8), _t(uv)), jcam.unproject("kb8", kb8, uv), 1e-5)
+    with pytest.raises(ValueError):
+        tcam.unproject("ds", _t(K4), _t(uv))
 
 
 # ------------------------------------------------------------------ matching

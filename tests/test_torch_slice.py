@@ -78,7 +78,10 @@ for name in ("geometry.twoview", "slam_map.atlas", "utils.align", "pipeline.syst
              "place.vocab", "place.keyframe_db", "geometry.mlpnp", "pipeline.relocalization",
              "pipeline.loop_closing", "ops.imu", "solver.inertial", "solver.vi_ba",
              "solver.vi_pose_opt", "pipeline.inertial_system", "utils.imu_scene",
-             "ops.align", "geometry.sim3solver", "solver.pose_graph", "utils.loop_scene"):
+             "ops.align", "geometry.sim3solver", "solver.pose_graph", "utils.loop_scene",
+             "features.stereo", "pipeline.stereo_system", "pipeline.rgbd_system",
+             "pipeline.stereo_inertial_system", "io.euroc", "io.rectify", "config",
+             "utils.sensor_scene"):
     assert "orbslam3_tpu_torch." + name in names, name
 from orbslam3_tpu_torch.pipeline.system import SlamConfig, System
 sys_ = System(SlamConfig(), device="cpu")
@@ -88,6 +91,10 @@ assert sys_._pending is None and sys_.loop_closer is not None
 from orbslam3_tpu_torch.pipeline.inertial_system import InertialConfig, InertialSystem
 isys = InertialSystem(SlamConfig(enable_relocalization=False), InertialConfig(), device="cpu")
 assert isys.state == 0 and not isys.imu_initialized
+from orbslam3_tpu_torch import config
+from orbslam3_tpu_torch.pipeline.stereo_inertial_system import StereoInertialSystem
+cfg, icfg, scfg, map0, map1 = config.tumvi_stereo_inertial(enable_relocalization=False)
+assert StereoInertialSystem(cfg, icfg, scfg, device="cpu").imu_fix_scale
 import chip_smoke
 assert "jax" not in [m.split(".")[0] for m, v in sys.modules.items() if v is not None]
 print(len(names))
@@ -99,7 +106,7 @@ def test_port_and_smoke_import_without_jax():
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": REPO})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 53   # every module of the package
+    assert int(out.stdout.split()[-1]) >= 69   # every module of the package
 
 
 def _smoke(cwd):

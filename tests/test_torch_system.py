@@ -367,8 +367,7 @@ def test_localization_mode_and_exports():
     assert sys_.state == tsystem.NO_IMAGES_YET and sys_.n_resets == 1
 
 
-@pytest.mark.parametrize("flag", [
-    dict(ba_mesh_shards=2), dict(cam_model="kb8"), dict(stereo_bf=40.0)])
+@pytest.mark.parametrize("flag", [dict(ba_mesh_shards=2)])
 def test_flags_of_parts_not_ported_are_refused(flag):
     with pytest.raises(NotImplementedError, match="queue 1 item"):
         tsystem.System(tsystem.SlamConfig(**flag), device="cpu")

@@ -126,6 +126,21 @@ def track_jax(cfg, m, view, frames):
     return m, out
 
 
+def jax_config(cfg):
+    """A port config dataclass (SlamConfig, InertialConfig, StereoConfig,
+    OrbParams, MapCapacity) as the JAX package's class of the same name,
+    field by field."""
+    import dataclasses
+    from orbslam3_tpu.pipeline import inertial_system as jis
+    from orbslam3_tpu.pipeline import stereo_system as jss
+    classes = {"SlamConfig": jsystem.SlamConfig, "InertialConfig": jis.InertialConfig,
+               "StereoConfig": jss.StereoConfig, "OrbParams": jx.OrbParams,
+               "MapCapacity": jstate.MapCapacity}
+    vals = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    return classes[type(cfg).__name__](**{
+        k: jax_config(v) if dataclasses.is_dataclass(v) else v for k, v in vals.items()})
+
+
 def jax_system(cfg):
     """A JAX System with the scene's SlamConfig.  No keyframe database: the
     seeded drives call the keyframe programs directly, outside a `System`, so
@@ -192,9 +207,10 @@ def fields(x) -> dict:
 
 def copy_system_state(jsys, tsys) -> None:
     """Copy a JAX `System`'s tracker state (map, bank, view, poses, velocity
-    flag, keyframe bookkeeping, frame id, state, timestamps) and its Atlas
-    sessions (`convert.session_from_numpy`) into a port `System`, so that
-    both continue from the same point."""
+    flag, keyframe bookkeeping, frame id, state, timestamps), a stereo
+    System's depth of the current frame, and its Atlas sessions
+    (`convert.session_from_numpy`, with their stereo right-u rows) into a port
+    `System`, so that both continue from the same point."""
     dev = tsys.device
     tsys.map = convert.map_from_numpy(fields(jsys.map), dev)
     tsys.bank = None if jsys.bank is None else convert.bank_from_numpy(fields(jsys.bank), dev)
@@ -207,11 +223,14 @@ def copy_system_state(jsys, tsys) -> None:
                  "_prev_frame_ts", "localization_only"):
         setattr(tsys, name, getattr(jsys, name))
     tsys.trajectory = [(ts, np.array(R), np.array(t)) for ts, R, t in jsys.trajectory]
+    if getattr(jsys, "_depth", None) is not None:
+        tsys._depth = convert.stereo_depth_from_numpy(fields(jsys._depth), dev)
     tsys.atlas.sessions = [
         convert.session_from_numpy(
             fields(s.map), {k: fields(f) for k, f in s.kf_features.items()},
             {k: np.asarray(b) for k, b in s.kf_bindings.items()}, s.trajectory,
-            None if s.db is None else fields(s.db), dev)
+            None if s.db is None else fields(s.db), dev,
+            ur={k: np.asarray(u) for k, u in (s.kf_ur or {}).items()})
         for s in jsys.atlas.sessions]
 
 
