@@ -6,8 +6,8 @@ Drives the port's main paths, the per-frame monocular step, the synchronous
 keyframe step, the whole `System` from raw frames, its recovery of a lost
 track by relocalization, the mono-inertial `System`, loop closing with
 the asynchronous keyframe chain, map merging, GNSS georeferencing, the
-checkpoint, and the stereo, RGB-D, stereo-inertial and KB8 fisheye Systems
-(phase 11), at the JAX package's default monocular configuration (480x752 image, 1200 ORB features over 8
+checkpoint, the stereo, RGB-D, stereo-inertial and KB8 fisheye Systems
+(phase 11) and the EuRoC / TUM-VI sequence runner (phase 12), at the JAX package's default monocular configuration (480x752 image, 1200 ORB features over 8
 levels, map capacity 256 keyframes / 24576 points / 196608 observations, a
 local view of 8192 points over 12 keyframes; window BA caps 16 / 4096 /
 12288, 6 LM steps over an 8-keyframe window, 4 triangulation neighbours, 768
@@ -197,6 +197,24 @@ new points at most):
      (JAX: 0.0055), `orb_describe` 78.  Per part: the host-clock median per
      frame kind, one profiled frame per kind (kernels, device ms), the
      blocking reads per frame kind with their sites.
+ 12. the sequence runner (`orbslam3_tpu_torch/tools/run_euroc.py`): (a) the
+     EuRoC-layout tree of tests/test_euroc_tool.py written at full width
+     (`utils/euroc_scene.py`: 60 radtan-distorted 480x752 frames of cam0
+     and cam1, depth0, a 200 Hz IMU, the ground truth); its cam0 through
+     the host decoder and, where the native ingest builds (g++ and the
+     libpng headers), through it too: the two within 0.3 graylevels, 1e-3
+     where the map's source lies inside the image.  (b) the runner's five
+     arms through `run_euroc.main` on the card (the decoder that runs is
+     the one its first line names), each with the launch counters set to 0
+     just before it and read just after, under tests/test_euroc_tool.py's
+     gates: every frame processed, 0 resets, more than 60% of the frames
+     in the TUM file, an ATE below 0.15 of the path's span, |scale - 1|
+     below 0.1 for stereo, stereo-inertial and RGB-D; `orb_describe` once
+     per mono, mono-inertial or RGB-D frame, twice per stereo pair; the
+     map and the bank on the card.  Per arm: frames, fps, keyframes, the
+     ATE line, the wait for the images, and per frame kind the host-clock
+     median and the blocking reads with their sites (frame 0 left out: its
+     reads include the System's construction).
 
 Each phase prints one line (phase 6 three more before it, phase 7 four more
 after it: kernels per call and device time of `add_keyframe` and of the two
@@ -204,7 +222,8 @@ halves of an attempt, from torch.profiler's kernel records; phase 8 one per
 frame kind after it; phase 9 one per part, one per timed stage and its
 total; phase 10 one per part, 10a's stages and read sites after it, and its
 total; phase 11 a line for the first pair, then per part one line and
-one per frame kind, and its total); the kernels' JSON
+one per frame kind, and its total; phase 12 a line for the tree, then per
+arm one line and one per frame kind, and its total); the kernels' JSON
 line and the card's line precede the last line, `{"ok": true, "device":
 {...}}`.  Any failure raises and exits non-zero before it.
 """
@@ -1382,6 +1401,163 @@ def print_sensors(sp: dict) -> None:
                   f"frame {rd} {k['sites']}", flush=True)
 
 
+# phase 12's arms: (mode, metric scale, extractions per frame).  Each runs
+# the tree's 60 frames: the five take ~100 s on the card, so none is cut.
+EUROC_ARMS = (("mono", False, 1), ("stereo", True, 2), ("rgbd", True, 1),
+              ("mono-inertial", False, 1), ("stereo-inertial", True, 2))
+
+
+def euroc_ingest_check(root) -> dict:
+    """12a: cam0 of the tree through the host path (`load_image` +
+    `apply_undistort`) and, where its library builds, the native ingest;
+    their frames must agree within test_io.py's oracle tolerance (0.3
+    graylevels anywhere, 1e-3 where the map's source pixel lies inside the
+    image).  Returns ms per frame of each and the differences."""
+    import numpy as np
+    from orbslam3_tpu_torch.io import euroc, native_ingest
+
+    seq = euroc.EurocSequence(root)
+    cam = euroc.EUROC_CAM0
+    hw = cam["resolution"]
+    umap = euroc.undistort_map(cam["params"], cam["distortion"], hw)
+    t0 = time.perf_counter()
+    host = [euroc.apply_undistort(seq.load_image(r), umap) for r in seq.images]
+    out = dict(native=native_ingest.available(), error=native_ingest.build_error(),
+               host_ms=(time.perf_counter() - t0) / len(host) * 1e3, native_ms=None,
+               max_diff=None, inner_diff=None, n=len(host))
+    if not out["native"]:
+        return out
+    t0 = time.perf_counter()
+    got = list(native_ingest.NativeIngest([r.path for r in seq.images], hw, umap, src_hw=hw))
+    out["native_ms"] = (time.perf_counter() - t0) / len(got) * 1e3
+    if len(got) != len(host):
+        _fail(f"euroc 12a: the native ingest gave {len(got)} of {len(host)} frames")
+    d = np.stack([np.abs(a - b) for a, b in zip(got, host)])
+    inner = (umap[..., 0] >= 1) & (umap[..., 0] <= hw[1] - 2) & \
+        (umap[..., 1] >= 1) & (umap[..., 1] <= hw[0] - 2)
+    out["max_diff"], out["inner_diff"] = float(d.max()), float(d[:, inner].max())
+    if out["max_diff"] > 0.3 or out["inner_diff"] > 1e-3:
+        _fail(f"euroc 12a: native and host frames differ by {out['max_diff']} "
+              f"({out['inner_diff']} inside)")
+    return out
+
+
+def euroc_phase(dev) -> dict:
+    """Phase 12 on device `dev`: the EuRoC-layout tree of
+    tests/test_euroc_tool.py written at full width (`utils/euroc_scene`),
+    its decoders held together (12a), then the sequence runner's five arms
+    through `run_euroc.main` on the card (12b), each under
+    TestRunEurocTool's gates with the launch counters set to 0 just before
+    it and read just after; raises on a failed gate.  Returns the numbers."""
+    import io
+    import shutil
+    import torch
+    from orbslam3_tpu_torch.ops import orb_patches
+    from orbslam3_tpu_torch.tools import run_euroc
+    from orbslam3_tpu_torch.utils import euroc_scene as es
+    from orbslam3_tpu_torch.utils import sensor_scene as ss
+    from orbslam3_tpu_torch.utils import sync_census
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "orbslam3_tpu_torch",
+                        "build", f"euroc_seq_{os.getpid()}")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        es.write_tree(root, es.N_FRAMES)
+        out = {"tree_s": time.perf_counter() - t0, "ingest": euroc_ingest_check(root)}
+        n = es.N_FRAMES
+        span = es.span(n)
+        for mode, metric, per_frame in EUROC_ARMS:
+            traj = os.path.join(root, f"traj_{mode}.txt")
+            found: list = []
+            rec = dict(kinds=collections.defaultdict(list), reads=collections.defaultdict(list),
+                       sites=collections.defaultdict(collections.Counter), ingest=[])
+
+            def on_frame(i, sys_, before, track_s, ingest_s, rec=rec, found=found):
+                kind = ss.frame_kind(sys_, *before)
+                rec["kinds"][kind].append(track_s)
+                rec["ingest"].append(ingest_s)
+                if i > 0:        # frame 0's reads include the System's construction
+                    rec["reads"][kind].append(len(found))
+                    rec["sites"][kind].update(found)
+                found.clear()
+
+            argv = [root, "--mode", mode, "--out", traj] + \
+                ([] if dev.type == "cuda" else ["--device", str(dev)])
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            orb_patches.reset_counters()
+            with contextlib.redirect_stdout(buf), sync_census._sync_warnings(found):
+                res = run_euroc.main(argv, on_frame=on_frame)
+            launches = orb_patches.launch_counts()
+            arm_s = time.perf_counter() - t0
+            text = buf.getvalue()
+            sys_ = res["system"]
+            n_run = len(rec["ingest"])
+            bad = []
+            if f"processed {n} frames" not in text or n_run != n:
+                bad.append(f"processed {n_run} of {n} frames")
+            if sys_.n_resets != 0 or "resets=0" not in text:
+                bad.append(f"{sys_.n_resets} resets")
+            n_traj = len([ln for ln in open(traj).read().splitlines() if ln])
+            if n_traj <= 0.6 * n:
+                bad.append(f"{n_traj} of {n} frames in the TUM file")
+            r = res["ate"]
+            if r is None or not r["rmse"] < 0.15 * span:
+                bad.append(f"ATE {None if r is None else r['rmse']} against a span of {span}")
+            elif metric and not abs(r["scale"] - 1.0) < 0.1:
+                bad.append(f"scale {r['scale']}")
+            want = {"ic_moments": 0, "brief_desc": 0, "orb_describe": per_frame * n_run}
+            if launches != want:
+                bad.append(f"launch counters {launches} for {per_frame * n_run} extractions")
+            for what, tensor in (("map", sys_.map.pt_xyz), ("bank", sys_.bank.xy)):
+                if tensor.device != dev:
+                    bad.append(f"the {what} is on {tensor.device}")
+            if bad:
+                _fail(f"euroc 12b {mode}: " + "; ".join(bad) + "\n" + text)
+            lines = text.splitlines()
+            out[mode] = dict(
+                n=n, launches=launches, arm_s=arm_s, wall=res["wall"],
+                fps=n / res["wall"], decoder=lines[0], ate_line=next(
+                    ln for ln in lines if ln.startswith("ATE:")),
+                ate=r["rmse"], scale=r["scale"], span=span, n_kf=sys_.n_kf_host,
+                n_traj=n_traj, ingest_ms=statistics.median(rec["ingest"]) * 1e3,
+                kinds={k: dict(frames=len(v), median_ms=statistics.median(v) * 1e3,
+                               reads=statistics.mean(rec["reads"][k]) if rec["reads"][k]
+                               else None, sites=dict(rec["sites"][k].most_common(4)))
+                       for k, v in rec["kinds"].items()})
+            del sys_, res
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def print_euroc(ep: dict) -> None:
+    """Phase 12's lines."""
+    ig = ep["ingest"]
+    if ig["native"]:
+        dec = (f"native ingest {ig['native_ms']:.2f} ms per frame against the host path's "
+               f"{ig['host_ms']:.2f} ms, frames within {ig['max_diff']:.3g} "
+               f"({ig['inner_diff']:.3g} inside the map's source)")
+    else:
+        dec = (f"the native ingest does not build here ({ig['error']}): every arm runs the "
+               f"host path (load_image + apply_undistort, no CLAHE), "
+               f"{ig['host_ms']:.2f} ms per frame")
+    print(f"euroc 12a: tree of {ig['n']} frames (480x752 cam0, cam1, depth0, 200 Hz IMU, "
+          f"ground truth) written in {ep['tree_s']:.1f} s; {dec}", flush=True)
+    for mode, *_ in EUROC_ARMS:
+        a = ep[mode]
+        print(f"euroc 12b {mode}: {a['decoder']}; {a['n']} frames in {a['wall']:.1f} s "
+              f"({a['fps']:.2f} fps; arm {a['arm_s']:.1f} s), 0 resets, {a['n_kf']} "
+              f"keyframes, {a['n_traj']} poses in the TUM file; {a['ate_line']} (span "
+              f"{a['span']:.3f}); waiting for the images {a['ingest_ms']:.2f} ms per frame "
+              f"(median); launches {a['launches']}", flush=True)
+        for kind, k in a["kinds"].items():
+            rd = "n/a" if k["reads"] is None else f"{k['reads']:.2f}"
+            print(f"  {kind}: {k['frames']} frames, median {k['median_ms']:.1f} ms on the "
+                  f"host clock; blocking reads per frame {rd} {k['sites']}", flush=True)
+
+
 def patch_kernel_work(sel, angle) -> dict:
     """Per kernel, the bytes and operations that these keypoints need: the
     distinct pixels the windows touch (each read once), the keypoints, the
@@ -1705,6 +1881,12 @@ def main() -> int:
     print_sensors(sp)
     print(f"sensors: phase {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 12. the EuRoC / TUM-VI sequence runner ---------------------------------
+    t0 = time.perf_counter()
+    ep = euroc_phase(dev)
+    print_euroc(ep)
+    print(f"euroc: phase {time.perf_counter() - t0:.1f} s", flush=True)
+
     # report ----------------------------------------------------------------
     src = "orbslam3_tpu_torch/csrc/orb_patches.cu"
     replaces = {"ic_moments": "orbslam3_tpu/ops/pallas_patches.py:58",
@@ -1721,7 +1903,9 @@ def main() -> int:
                                "relocalization": reloc_launches[k], "inertial": il[k],
                                "loop": loop_launches[k], "merge_gnss": atlas_launches[k],
                                **{p: sp[p]["launches"][k] for p in
-                                  ("stereo", "rgbd", "stereo_inertial", "kb8_mono")}},
+                                  ("stereo", "rgbd", "stereo_inertial", "kb8_mono")},
+                               **{"euroc_" + m.replace("-", "_"): ep[m]["launches"][k]
+                                  for m, *_ in EUROC_ARMS}},
          "max_abs_err": err[k], "ms": ev_ms[k], "plain_ms": plain_ms[k],
          "bound_ms": work[k]["bound_ms"], "bound_by": work[k]["bound_by"],
          "library_ms": None, "device_ms": dev_ms[k], "bytes": work[k]["bytes"],

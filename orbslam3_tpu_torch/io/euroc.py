@@ -1,12 +1,27 @@
-"""EuRoC MAV and TUM-VI calibrations, and the host-side image remap.
+"""EuRoC MAV (ASL layout) and TUM-VI dataset loaders, calibrations and the
+host-side image remap.
 
-The port's copy of the parts of `orbslam3_tpu/io/euroc.py` that the dataset
-presets (`orbslam3_tpu_torch/config.py`) and their tests use: the camera and
-IMU calibration tables and `apply_undistort`.  Importing the JAX package's
-module would import JAX.  The dataset readers are not ported yet.
+The port's copy of `orbslam3_tpu/io/euroc.py` (importing the JAX package's
+module would import JAX).  The reference ingests a ROS 2 bag (SURVEY L9);
+for the benchmark sequences (EuRoC MH01-05, TUM-VI rooms) the standard ASL
+directory layout is read directly:
+
+    <root>/mav0/cam0/data.csv        timestamp [ns], filename
+    <root>/mav0/cam0/data/*.png      grayscale images
+    <root>/mav0/imu0/data.csv        timestamp, wx, wy, wz, ax, ay, az
+    <root>/mav0/state_groundtruth_estimate0/data.csv  (EuRoC GT)
+
+Timestamps are Python floats in seconds (`int(ns) * 1e-9`, float64): EuRoC
+stamps are ~1.4e9 s, where a float32 ulp is 128 s.  Images load lazily
+(PIL) as float32 (0..255) arrays.
 """
 
 from __future__ import annotations
+
+import csv
+import dataclasses
+import os
+from typing import Iterator, Optional
 
 import numpy as np
 
@@ -89,6 +104,105 @@ TUMVI_IMU = dict(
     walk_gyro=1.0e-6, walk_acc=8.6e-5, rate_hz=200,
     Tbc=_TUMVI_T_B_C0,
 )
+
+
+@dataclasses.dataclass
+class ImageRecord:
+    ts: float
+    path: str
+
+
+@dataclasses.dataclass
+class ImuRecord:
+    ts: float
+    gyro: np.ndarray
+    acc: np.ndarray
+
+
+class EurocSequence:
+    """Lazy loader for one ASL-layout sequence directory."""
+
+    def __init__(self, root: str, cam: str = "cam0"):
+        self.root = root
+        mav = os.path.join(root, "mav0")
+        if not os.path.isdir(mav):
+            mav = root  # allow pointing directly at mav0
+        self.cam_dir = os.path.join(mav, cam)
+        self.imu_csv = os.path.join(mav, "imu0", "data.csv")
+        self.gt_csv = os.path.join(mav, "state_groundtruth_estimate0", "data.csv")
+        self.images = self._read_cam_csv()
+        self.imu = self._read_imu_csv() if os.path.exists(self.imu_csv) else []
+
+    def _read_cam_csv(self) -> list[ImageRecord]:
+        path = os.path.join(self.cam_dir, "data.csv")
+        out = []
+        with open(path) as f:
+            for row in csv.reader(f):
+                if not row or row[0].startswith("#"):
+                    continue
+                ts = int(row[0]) * 1e-9
+                out.append(ImageRecord(ts, os.path.join(self.cam_dir, "data", row[1].strip())))
+        return out
+
+    def _read_imu_csv(self) -> list[ImuRecord]:
+        out = []
+        with open(self.imu_csv) as f:
+            for row in csv.reader(f):
+                if not row or row[0].startswith("#"):
+                    continue
+                v = [float(x) for x in row]
+                out.append(ImuRecord(v[0] * 1e-9, np.asarray(v[1:4], np.float32),
+                                     np.asarray(v[4:7], np.float32)))
+        return out
+
+    def load_image(self, rec: ImageRecord) -> np.ndarray:
+        from PIL import Image
+        img = Image.open(rec.path)
+        if img.mode != "L":
+            img = img.convert("L")
+        return np.asarray(img, dtype=np.float32)
+
+    def read_groundtruth(self) -> tuple[np.ndarray, np.ndarray]:
+        """(timestamps (N,), positions (N,3)) from the EuRoC GT csv."""
+        ts, pos = [], []
+        with open(self.gt_csv) as f:
+            for row in csv.reader(f):
+                if not row or row[0].startswith("#"):
+                    continue
+                ts.append(int(row[0]) * 1e-9)
+                pos.append([float(row[1]), float(row[2]), float(row[3])])
+        return np.asarray(ts), np.asarray(pos)
+
+    def frames(self) -> Iterator[tuple[float, np.ndarray]]:
+        for rec in self.images:
+            yield rec.ts, self.load_image(rec)
+
+    def imu_between(self, t0: float, t1: float) -> list[ImuRecord]:
+        return [r for r in self.imu if t0 < r.ts <= t1]
+
+
+def undistort_map(params: tuple, distortion: tuple, hw: tuple,
+                  new_params: Optional[tuple] = None) -> np.ndarray:
+    """Per-pixel source-coordinate map for the radtan undistortion of EuRoC
+    pinhole images (the reference undistorts in the ROS node,
+    image_grabber.hpp:96-110; here it is one gather per frame).
+
+    Returns an (h, w, 2) float32 map of source (x, y) per output pixel.
+    """
+    fx, fy, cx, cy = params[:4]
+    k1, k2, p1, p2 = distortion
+    h, w = hw
+    nfx, nfy, ncx, ncy = new_params if new_params is not None else params[:4]
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    x = (xs - ncx) / nfx
+    y = (ys - ncy) / nfy
+    r2 = x * x + y * y
+    radial = 1 + k1 * r2 + k2 * r2 * r2
+    xd = x * radial + 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
+    yd = y * radial + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y
+    mapx = fx * xd + cx
+    mapy = fy * yd + cy
+    return np.stack([mapx, mapy], axis=-1).astype(np.float32)
 
 
 def apply_undistort(img: np.ndarray, umap: np.ndarray) -> np.ndarray:

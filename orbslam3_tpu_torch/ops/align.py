@@ -1,10 +1,12 @@
-"""Point-set alignment on the device: the Umeyama similarity transform.
+"""Point-set alignment on the device: the Umeyama similarity transform,
+Horn's rigid alignment and the ATE RMSE.
 
-Counterpart of `umeyama_alignment` in `orbslam3_tpu/ops/align.py` (Umeyama
-1991; the Sim3 solver's closed form, reference src/Sim3Solver.cc:311
-ComputeSim3), batched over leading dimensions so that one call fits every
-RANSAC hypothesis.  `utils/align.py` is the NumPy version for the
-trajectory metric on the host.
+Counterpart of `orbslam3_tpu/ops/align.py` (Umeyama 1991; the Sim3 solver's
+closed form, reference src/Sim3Solver.cc:311 ComputeSim3), batched over
+leading dimensions so that one call fits every RANSAC hypothesis.
+`eval/ate.py` aligns trajectories through it in float32, as the JAX
+package does; `utils/align.py` is the float64 NumPy version that the
+drives' gates use on the host.
 
 The rotation is U S Vt with S = diag(1, 1, sign(det U det Vt)): a sign
 choice of the SVD flips a column of U together with the matching row of
@@ -46,3 +48,23 @@ def umeyama_alignment(src: torch.Tensor, dst: torch.Tensor, with_scale: bool = T
         s = torch.ones(src.shape[:-2], dtype=src.dtype, device=src.device)
     t = mu_d - s[..., None] * lie._mv(R, mu_s)
     return R, t, s
+
+
+def horn_alignment(src: torch.Tensor, dst: torch.Tensor):
+    """Rigid alignment (R, t) minimizing ||dst - (R src + t)|| (Horn, via
+    the SVD of `umeyama_alignment` without scale)."""
+    R, t, _ = umeyama_alignment(src, dst, with_scale=False)
+    return R, t
+
+
+def ate_rmse(est: torch.Tensor, gt: torch.Tensor, with_scale: bool = True):
+    """Absolute trajectory error after Horn(+scale) alignment, in the
+    tensors' own dtype (float32 for the JAX package's metric).
+
+    est, gt: (N, 3) associated positions.  Returns (rmse, s, R, t): the
+    reference acceptance oracle (evaluation/evaluate_ate_scale.py: align(),
+    then the RMSE over the translational residuals)."""
+    R, t, s = umeyama_alignment(est, gt, with_scale=with_scale)
+    err = s * (est @ R.T) + t - gt
+    rmse = torch.sqrt(torch.mean(torch.sum(err * err, dim=-1)))
+    return rmse, s, R, t

@@ -103,3 +103,24 @@ def hamming_distance(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor
     nb = torch.sum(B, dim=1, keepdim=True)
     dot = A @ B.T
     return (na + nb.T - 2.0 * dot).to(torch.int32)
+
+
+def compute_descriptors_exact(img_blurred: torch.Tensor, xy: torch.Tensor,
+                              angle_deg: torch.Tensor) -> torch.Tensor:
+    """Continuous-rotation formulation (one gather of 512 samples per
+    keypoint; the reference CUDA kernel's rotation, Orb_gpu.cu
+    calcOrb_kernel), the oracle of the binned rBRIEF above.  Every
+    rotated pattern point is rounded half to even, like __float2int_rn,
+    added to round(xy) and clamped into the image.  Returns (N, 8) int32."""
+    h, w = img_blurred.shape
+    dev = img_blurred.device
+    pat = torch.from_numpy(pattern().astype(np.float32)).to(dev)   # (512, 2) x, y
+    ang = angle_deg * (np.pi / 180.0)
+    ca, sa = torch.cos(ang), torch.sin(ang)                         # (N,)
+    px, py = pat[:, 0], pat[:, 1]
+    rx = torch.round(px[None, :] * ca[:, None] - py[None, :] * sa[:, None])
+    ry = torch.round(px[None, :] * sa[:, None] + py[None, :] * ca[:, None])
+    gx = torch.clamp(torch.round(xy[:, 0:1]) + rx, 0, w - 1).long()
+    gy = torch.clamp(torch.round(xy[:, 1:2]) + ry, 0, h - 1).long()
+    vals = img_blurred[gy, gx]                                      # (N, 512)
+    return pack_bits(vals[:, 0::2] < vals[:, 1::2])

@@ -445,6 +445,7 @@ class InertialSystem(base.System):
         self.R_prev, self.t_prev = self.R_cur, self.t_cur
         self._set_pose(out.R_cur, out.t_cur, host=(host[4:13].reshape(3, 3), host[13:16]))
         self.has_velocity = True
+        self.last_kp_pt = out.kp_pt   # the viewer's FrameDrawer overlay
         self.vel = out.vel
         self.last_body = (out.Rwb, out.pwb)
         if vi_ok:

@@ -12,6 +12,7 @@ the same bf as `SlamConfig.stereo_bf`, which weighs that residual.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..features.extractor import FeatureFrame
@@ -49,6 +50,8 @@ class RGBDSystem(stereo_system.StereoSystem):
         """One RGB-D frame: a uint8 image (or its features on the System's
         device) and the metric depth image aligned to it."""
         ff = features if features is not None else self._extract(img)
-        depth_img = torch.as_tensor(depth, dtype=torch.float32).to(self.device)
+        if not isinstance(depth, torch.Tensor):
+            depth = np.asarray(depth, np.float32)
+        depth_img = self._image_on_device(depth).to(torch.float32)
         self._depth = depth_from_image(ff, depth_img, self.bf, self.max_depth)
         return self._track_with_depth(ff, ts)

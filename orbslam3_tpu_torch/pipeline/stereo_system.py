@@ -116,8 +116,8 @@ class StereoSystem(base.System):
         """Extract both images (unless features are given), associate the
         pair into `self._depth`, refine it when both images are given, and
         return the left frame's features."""
-        il = None if img_l is None else torch.as_tensor(img_l).to(self.device)
-        ir = None if img_r is None else torch.as_tensor(img_r).to(self.device)
+        il = None if img_l is None else self._image_on_device(img_l)
+        ir = None if img_r is None else self._image_on_device(img_r)
         ff_l = features_l if features_l is not None else self._extract(il)
         ff_r = features_r if features_r is not None else self._extract(ir)
         self._depth = self._stereo_match(ff_l, ff_r)
@@ -141,13 +141,17 @@ class StereoSystem(base.System):
             self._stereo_initialize(ff_l, ts)
         elif self.state in (base.OK, base.RECENTLY_LOST):
             self._track_frame(ff_l, ts)
-        if self.state != base.OK:
-            return self.state, None
-        R_cw, t_cw = self._pose_numpy()
-        Rwc = R_cw.T
-        twc = -Rwc @ t_cw
-        self.trajectory.append((ts, Rwc, twc))
-        return self.state, (Rwc, twc)
+        out = None
+        if self.state == base.OK:
+            R_cw, t_cw = self._pose_numpy()
+            Rwc = R_cw.T
+            twc = -Rwc @ t_cw
+            self.trajectory.append((ts, Rwc, twc))
+            out = (Rwc, twc)
+        if self.viewer is not None:
+            self.viewer.publish(self)
+            self.viewer.wait_if_paused()
+        return self.state, out
 
     # ----------------------------------------------------------------- init
     def _stereo_initialize(self, ff: FeatureFrame, ts: float) -> None:

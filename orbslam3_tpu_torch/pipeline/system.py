@@ -529,10 +529,22 @@ class System:
         self.n_gnss_ba = 0
         if config.enable_gnss:
             self.georef = georef_mod.GeometricReferencer(min_kfs=config.gnss_min_kfs)
+        # the live viewer (viz_server.ViewerServer.attach) and the bindings of
+        # the last tracked frame's keypoints, which its overlay colours
+        self.viewer = None
+        self.last_kp_pt: Optional[torch.Tensor] = None
 
     # ------------------------------------------------------------- frontend
     def _extract(self, img) -> FeatureFrame:
-        return extractor.extract(torch.as_tensor(img).to(self.device), self.cfg.orb)
+        return extractor.extract(self._image_on_device(img), self.cfg.orb)
+
+    def _image_on_device(self, img) -> torch.Tensor:
+        """A frame on the System's device: a host array through pinned
+        memory without waiting for the device's queue (`state._upload`), a
+        tensor as it is (moved if it lies elsewhere)."""
+        if isinstance(img, torch.Tensor):
+            return img.to(self.device)
+        return mapstate._upload(img, self.device)
 
     def _ensure_bank(self, ff: FeatureFrame):
         if self.bank is None or self.bank.xy.shape[1] != ff.capacity:
@@ -614,6 +626,9 @@ class System:
                 self._prev_frame_ts = ts
                 return self.state, None
         self._prev_frame_ts = ts
+        # cleared every frame: the viewer's overlay must never colour this
+        # frame's keypoints with an earlier frame's bindings
+        self.last_kp_pt = None
         ff = features if features is not None else self._extract(img)
 
         if self.state in (NO_IMAGES_YET, NOT_INITIALIZED):
@@ -629,6 +644,12 @@ class System:
             twc = -Rwc @ t_cw
             self.trajectory.append((ts, Rwc, twc))
             out = (Rwc, twc)
+        if self.viewer is not None:
+            # the live viewer (reference Viewer.cc camera-follow + step
+            # mode): a snapshot and the annotated frame, then the pause gate
+            self.viewer.publish(self)
+            self.viewer.publish_frame(img, ff, self.last_kp_pt)
+            self.viewer.wait_if_paused()
         return self.state, out
 
     # ----------------------------------------------------------------- init
@@ -779,6 +800,7 @@ class System:
         self.R_prev, self.t_prev = self.R_cur, self.t_cur
         self._set_pose(tr.R, tr.t, host=(host[1:10].reshape(3, 3), host[10:13]))
         self.has_velocity = True
+        self.last_kp_pt = tr.kp_pt     # the viewer's FrameDrawer overlay
 
         # keyframe decision (reference src/Tracking.cc:985-1005);
         # localization-only mode never inserts
@@ -1084,10 +1106,14 @@ class System:
 
     def shutdown(self) -> None:
         """Reference System::Shutdown: absorbs the pending chain (there are
-        no threads to join) and waits for the device's queue."""
+        no threads to join), waits for the device's queue and detaches the
+        viewer."""
         self._drain_pending()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        if self.viewer is not None:
+            self.viewer.stop()
+            self.viewer = None
 
     # ----------------------------------------------------------- trajectory
     @staticmethod

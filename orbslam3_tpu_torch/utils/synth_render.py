@@ -1,12 +1,14 @@
 """Synthetic textured-world renderer (pure numpy).
 
-A copy of the functions of `orbslam3_tpu/utils/synth_render.py` that the
-port's drives need: importing that module pulls in JAX through
-`orbslam3_tpu/__init__.py`, and the port runs where JAX is not installed.
-It renders pinhole or fisheye (`kb8_rays`) views of a textured ground plane (z = 0, camera above
-looking down) by inverse mapping: pixel ray -> plane intersection ->
-bilinear texture sample.  `render_plane` here defaults to no mesas, so depth is
-the plane's.
+A copy of `orbslam3_tpu/utils/synth_render.py`: importing that module pulls
+in JAX through `orbslam3_tpu/__init__.py`, and the port runs where JAX is
+not installed.  It renders pinhole or fisheye (`kb8_rays`) views of a
+textured ground plane (z = 0, camera above looking down) by inverse
+mapping: pixel ray -> plane intersection -> bilinear texture sample; four
+texture families, the elevated mesas (`default_mesas`) and a photometric
+stress model (`photometric_stress`).  `render_plane` here defaults to no
+mesas, so depth is the plane's; callers that want mesas pass them
+(`DEFAULT_MESAS` is the JAX package's default set).
 """
 
 from __future__ import annotations
@@ -27,6 +29,91 @@ def block_texture(rng: np.random.Generator, size: int = 1024,
         big = np.kron(small, np.ones((b, b)))[:size, :size]
         out += amp[lvl] * big
     return (30.0 + 195.0 * out).astype(np.float32)
+
+
+def voronoi_texture(rng: np.random.Generator, size: int = 1024,
+                    n_seeds: int = 500) -> np.ndarray:
+    """Voronoi-cell texture: random polygonal cells with per-cell
+    intensity + a fine speckle layer.  A texture FAMILY disjoint from
+    block_texture (irregular oblique edges and junctions vs axis-aligned
+    multi-scale blocks) — used to test vocabulary/extractor
+    generalization beyond the statistics they were trained on."""
+    pts = rng.uniform(0, size, (n_seeds, 2)).astype(np.float32)
+    vals = rng.uniform(0.0, 1.0, n_seeds).astype(np.float32)
+    out = np.zeros((size, size), np.float32)
+    xs = np.arange(size, dtype=np.float32)
+    for r0 in range(0, size, 128):           # row tiles bound memory
+        yy = np.arange(r0, r0 + 128, dtype=np.float32)[:, None, None]
+        xx = xs[None, :, None]
+        d2 = (xx - pts[None, None, :, 0]) ** 2 + \
+             (yy - pts[None, None, :, 1]) ** 2
+        out[r0:r0 + 128] = vals[np.argmin(d2, axis=-1)]
+    speck = rng.uniform(-0.08, 0.08, (size, size)).astype(np.float32)
+    return np.clip(30.0 + 195.0 * (out + speck), 0, 255).astype(np.float32)
+
+
+def stripe_texture(rng: np.random.Generator, size: int = 1024,
+                   n_orient: int = 4) -> np.ndarray:
+    """Superposed oriented gratings, thresholded: long oblique edges and
+    X-junctions with strong orientation statistics — a texture family
+    disjoint from both block (axis-aligned) and voronoi (isotropic
+    cells).  Exercises the vocabulary on edge-dominated descriptors."""
+    u, v = np.meshgrid(np.arange(size, dtype=np.float32),
+                       np.arange(size, dtype=np.float32))
+    acc = np.zeros((size, size), np.float32)
+    for _ in range(n_orient):
+        th = rng.uniform(0, np.pi)
+        f = rng.uniform(0.02, 0.10)
+        acc += np.sin(2 * np.pi * f * (u * np.cos(th) + v * np.sin(th)) +
+                      rng.uniform(0, 6.28)).astype(np.float32)
+    lvl = np.digitize(acc, np.quantile(acc, [0.25, 0.5, 0.75]))
+    speck = rng.uniform(-0.06, 0.06, (size, size)).astype(np.float32)
+    return np.clip(30.0 + 195.0 * (lvl / 3.0 + speck), 0,
+                   255).astype(np.float32)
+
+
+def blob_texture(rng: np.random.Generator, size: int = 1024,
+                 n_blobs: int = 350) -> np.ndarray:
+    """Soft Gaussian blobs over a mid-gray field: curved boundaries and
+    low-contrast gradients (the hardest regime for FAST/BRIEF) — a
+    fourth texture family for place-recognition stress."""
+    out = np.full((size, size), 0.5, np.float32)
+    ys = rng.uniform(0, size, n_blobs)
+    xs_ = rng.uniform(0, size, n_blobs)
+    sig = rng.uniform(6, 40, n_blobs)
+    amp = rng.uniform(-0.5, 0.5, n_blobs)
+    grid = np.arange(size, dtype=np.float32)
+    for i in range(n_blobs):
+        r = int(3 * sig[i])
+        y0, x0 = int(ys[i]), int(xs_[i])
+        ys_l = slice(max(y0 - r, 0), min(y0 + r, size))
+        xs_l = slice(max(x0 - r, 0), min(x0 + r, size))
+        gy = np.exp(-0.5 * ((grid[ys_l] - ys[i]) / sig[i]) ** 2)
+        gx = np.exp(-0.5 * ((grid[xs_l] - xs_[i]) / sig[i]) ** 2)
+        out[ys_l, xs_l] += amp[i] * gy[:, None] * gx[None, :]
+    speck = rng.uniform(-0.05, 0.05, (size, size)).astype(np.float32)
+    return np.clip(30.0 + 195.0 * np.clip(out + speck, 0, 1), 0,
+                   255).astype(np.float32)
+
+
+def default_mesas(rng: np.random.Generator, n: int = 24,
+                  area: float = 10.0) -> tuple:
+    """Random elevated textured rectangles toward the camera (negative z).
+    The scene must be substantially NON-planar or two-view init hits the
+    homography twin-solution ambiguity (exactly like the reference on
+    planar scenes)."""
+    out = []
+    for _ in range(n):
+        x0 = rng.uniform(-2, area)
+        y0 = rng.uniform(-2, area)
+        w = rng.uniform(0.6, 1.6)
+        h = rng.uniform(0.6, 1.6)
+        z = -rng.uniform(0.8, 2.2)
+        out.append((x0, x0 + w, y0, y0 + h, z))
+    return tuple(out)
+
+
+DEFAULT_MESAS = default_mesas(np.random.default_rng(99))
 
 
 def pinhole_rays(K4, hw) -> np.ndarray:
@@ -106,6 +193,48 @@ def render_plane(R_cw: np.ndarray, t_cw: np.ndarray, K4, hw,
     img = (t00 * (1 - fx_) + t01 * fx_) * (1 - fy_) + \
         (t10 * (1 - fx_) + t11 * fx_) * fy_
     return np.where(hit, img, 0.0).astype(np.float32)
+
+
+def photometric_stress(img: np.ndarray, exposure: float = 1.0,
+                       gamma: float = 1.0, vignette: float = 0.0,
+                       blur_px: float = 0.0, blur_dir=(1.0, 0.0),
+                       noise: float = 0.0,
+                       rng: np.random.Generator | None = None
+                       ) -> np.ndarray:
+    """Photometric stress model for hostile synthetic drives (stands in
+    for the EuRoC/TUM-VI photometric regimes: auto-exposure steps, gamma
+    differences, lens vignetting, motion blur, sensor noise).
+
+    exposure: multiplicative gain.  gamma: (img/255)**gamma curve.
+    vignette: 0..1 corner attenuation (cos^4-style radial falloff).
+    blur_px: linear motion-blur length in pixels along blur_dir.
+    noise: additive Gaussian sigma (greylevels).  Returns [0,255] f32.
+    """
+    out = img.astype(np.float32)
+    if gamma != 1.0:
+        out = 255.0 * np.power(np.clip(out, 0, 255) / 255.0, gamma)
+    if exposure != 1.0:
+        out = out * exposure
+    if vignette > 0.0:
+        h, w = out.shape
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        r2 = (((xx - w / 2) / (w / 2)) ** 2 +
+              ((yy - h / 2) / (h / 2)) ** 2) / 2.0
+        out = out * (1.0 - vignette * r2 ** 2)
+    if blur_px >= 1.0:
+        n = int(np.ceil(blur_px))
+        dx, dy = blur_dir
+        nrm = max(np.hypot(dx, dy), 1e-9)
+        dx, dy = dx / nrm, dy / nrm
+        acc = np.zeros_like(out)
+        for k in range(n):
+            off = (k - (n - 1) / 2.0) * blur_px / max(n, 1)
+            sx, sy = int(round(off * dx)), int(round(off * dy))
+            acc += np.roll(np.roll(out, sy, axis=0), sx, axis=1)
+        out = acc / n
+    if noise > 0.0 and rng is not None:
+        out = out + rng.normal(0.0, noise, out.shape)
+    return np.clip(out, 0.0, 255.0).astype(np.float32)
 
 
 def look_down_pose(x: float, y: float, zdist: float, yaw: float = 0.0,

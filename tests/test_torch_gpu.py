@@ -4,7 +4,8 @@ from raw frames on the card, the 65536-word vocabulary and a relocalization
 on the card, the VI BA, the COO BA and the post-loop GBA, a loop closure, a
 map merge and the GNSS BA on the card against the CPU; a stereo pair through
 `track_stereo` on the card against the CPU, `orb_describe`'s launches per
-stereo frame, and `fisheye_stereo_match` on the card against the CPU.
+stereo frame, `fisheye_stereo_match` on the card against the CPU, and the
+sequence runner's mono arm on the card.
 
 These need an NVIDIA GPU with nvcc and are marked `gpu`; without a card they
 skip.  With a GPU: `python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest`
@@ -590,3 +591,31 @@ def test_fisheye_stereo_match_on_the_card_matches_the_cpu(dev):
     scale = ref.X.norm(dim=1).clamp_min(1.0)
     assert bool(((got.X.cpu() - ref.X).norm(dim=1) <= 1e-4 * scale).all())
     assert bool(torch.isfinite(got.X).all())
+
+
+def test_run_euroc_mono_arm_on_the_card(dev, tmp_path, capsys):
+    """The sequence runner's mono arm on the card for 20 frames of the
+    EuRoC-layout tree: `orb_describe` once per frame, the decoder named on
+    the first line (the native ingest where it builds, else the host path
+    with the reason), the System's state on the card, and no blocking read
+    at the frame's upload (pinned and asynchronous)."""
+    from orbslam3_tpu_torch.io import native_ingest
+    from orbslam3_tpu_torch.tools import run_euroc
+    from orbslam3_tpu_torch.utils import euroc_scene, sync_census
+    tree = euroc_scene.write_tree(str(tmp_path / "seq"), 20)
+    native_ingest.available()          # build (or fail to) before counting
+    found = []
+    orb_patches.reset_counters()
+    with sync_census._sync_warnings(found):
+        res = run_euroc.main([tree, "--mode", "mono", "--out", str(tmp_path / "t.txt")])
+    assert orb_patches.launch_counts() == {"ic_moments": 0, "brief_desc": 0,
+                                           "orb_describe": 20}
+    first = capsys.readouterr().out.splitlines()[0]
+    if native_ingest.available():
+        assert first == "ingest: native"
+    else:
+        assert first.startswith("ingest: host (native ingest library unavailable: ")
+    sys_ = res["system"]
+    assert sys_.map.pt_xyz.device.type == "cuda" and sys_.n_resets == 0
+    assert len(sys_.trajectory) > 12
+    assert not any("_image_on_device" in s or "_extract" in s for s in found), found
