@@ -7,7 +7,8 @@ keyframe step, the whole `System` from raw frames, its recovery of a lost
 track by relocalization, the mono-inertial `System`, loop closing with
 the asynchronous keyframe chain, map merging, GNSS georeferencing, the
 checkpoint, the stereo, RGB-D, stereo-inertial and KB8 fisheye Systems
-(phase 11) and the EuRoC / TUM-VI sequence runner (phase 12), at the JAX package's default monocular configuration (480x752 image, 1200 ORB features over 8
+(phase 11), the EuRoC / TUM-VI sequence runner (phase 12) and the
+extraction bench and vocabulary tools (phase 13), at the JAX package's default monocular configuration (480x752 image, 1200 ORB features over 8
 levels, map capacity 256 keyframes / 24576 points / 196608 observations, a
 local view of 8192 points over 12 keyframes; window BA caps 16 / 4096 /
 12288, 6 LM steps over an 8-keyframe window, 4 triangulation neighbours, 768
@@ -215,6 +216,18 @@ new points at most):
      ATE line, the wait for the images, and per frame kind the host-clock
      median and the blocking reads with their sites (frame 0 left out: its
      reads include the System's construction).
+ 13. the tools (`orbslam3_tpu_torch/tools/`), each through its `main` on the
+     card with the launch counters set to 0 just before it and read just
+     after: (a) `drive_extract_bench` at 30 iterations (`orb_describe` 1 +
+     30 + 12: the first call, the chain, the profiled steps; a device time
+     per `extract` and `orb_describe`'s share of it); (b) `train_vocab`
+     cut to 4 views and 256 words: `--stage extract` on the card
+     (`orb_describe` 4), then `--stage kmeans` on the card and on the CPU
+     from that descriptor file, whose codebooks must be equal; (c)
+     `vocab_recall_curve` at 16 places, map sizes 8 and 16, vocabulary 4096
+     (`orb_describe` 2 x 16), its rows scored again on the CPU from the
+     descriptors the card made: the same recall@1 and recall@3, margins
+     within 1e-5.
 
 Each phase prints one line (phase 6 three more before it, phase 7 four more
 after it: kernels per call and device time of `add_keyframe` and of the two
@@ -223,7 +236,8 @@ frame kind after it; phase 9 one per part, one per timed stage and its
 total; phase 10 one per part, 10a's stages and read sites after it, and its
 total; phase 11 a line for the first pair, then per part one line and
 one per frame kind, and its total; phase 12 a line for the tree, then per
-arm one line and one per frame kind, and its total); the kernels' JSON
+arm one line and one per frame kind, and its total; phase 13 one line per
+tool and its total); the kernels' JSON
 line and the card's line precede the last line, `{"ok": true, "device":
 {...}}`.  Any failure raises and exits non-zero before it.
 """
@@ -1558,6 +1572,112 @@ def print_euroc(ep: dict) -> None:
                   f"host clock; blocking reads per frame {rd} {k['sites']}", flush=True)
 
 
+TOOLS_PLACES, TOOLS_SIZES = 16, (8, 16)
+
+
+def tools_phase(dev) -> dict:
+    """Phase 13 on device `dev`: the extraction bench, the vocabulary trainer
+    and the recall curve through their `main`s, each with the launch counters
+    set to 0 just before it and read just after; the trainer's k-means and
+    the recall rows again on the CPU from the descriptors the card made.
+    Raises on a failed check; returns the numbers."""
+    import io
+    import shutil
+    from unittest import mock
+    import numpy as np
+    from orbslam3_tpu_torch.ops import orb_patches
+    from orbslam3_tpu_torch.tools import train_vocab, vocab_recall_curve
+    from orbslam3_tpu_torch.tools.drives import drive_extract_bench
+
+    cuda = [] if dev.type == "cuda" else ["--device", str(dev)]
+    out: dict = {}
+
+    def run(name, fn, want):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        orb_patches.reset_counters()
+        with contextlib.redirect_stdout(buf):
+            res = fn()
+        launches = orb_patches.launch_counts()
+        out[name] = dict(launches=launches, s=time.perf_counter() - t0)
+        if launches != {"ic_moments": 0, "brief_desc": 0, "orb_describe": want}:
+            _fail(f"tools {name}: launch counters {launches}, {want} extractions")
+        return res
+
+    # 13a: the extraction bench
+    iters = 30
+    b = run("extract_bench", lambda: drive_extract_bench.main([str(iters)] + cuda),
+            1 + iters + drive_extract_bench.N_PROFILED)
+    if dev.type == "cuda" and not (b["device_ms"] and b["device_ms"] > 0):
+        _fail(f"tools 13a: no device time ({b})")
+    out["extract_bench"]["res"] = b
+
+    # 13b: the vocabulary trainer, cut to 4 views and 256 words
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "orbslam3_tpu_torch",
+                        "build", f"tools_{os.getpid()}")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        descs = os.path.join(root, "descs.npz")
+        views, words = 4, 256
+        run("train_vocab", lambda: train_vocab.main(
+            ["--stage", "extract", "--n-views", str(views), "--desc-file", descs] + cuda), views)
+        km = ["--stage", "kmeans", "--n-words", str(words), "--desc-file", descs]
+        cb = {}
+        for name, d in (("card", cuda), ("cpu", ["--device", "cpu"])):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                cb[name] = train_vocab.main(km + ["--out", os.path.join(root, f"{name}.npy")] + d)
+            out["train_vocab"][f"kmeans_{name}_s"] = time.perf_counter() - t0
+            out["train_vocab"][f"entropy_{name}"] = buf.getvalue().splitlines()[-1].split("; ")[1]
+        if not np.array_equal(cb["card"], cb["cpu"]):
+            _fail(f"tools 13b: the card's codebook differs from the CPU's in "
+                  f"{int((cb['card'] != cb['cpu']).any(1).sum())} of {words} words")
+        out["train_vocab"]["n_desc"] = int(np.load(descs)["valid"].sum())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # 13c: the recall curve at 16 places, its rows again on the CPU
+    env = {"RECALL_PLACES": str(TOOLS_PLACES), "RECALL_SIZES": ",".join(map(str, TOOLS_SIZES)),
+           "RECALL_VOCABS": "4096"}
+    keep: dict = {}
+    with mock.patch.dict(os.environ, env):
+        rows = run("recall_curve", lambda: vocab_recall_curve.main(cuda, keep=keep),
+                   2 * TOOLS_PLACES)
+    cpu_rows = vocab_recall_curve.recall_rows(keep, (4096,), TOOLS_SIZES, "cpu", echo=False)
+    margin = max(abs(a[4] - b_[4]) for a, b_ in zip(rows, cpu_rows))
+    if [r[:4] for r in rows] != [r[:4] for r in cpu_rows] or margin > 1e-5:
+        _fail(f"tools 13c: card rows {rows} against the CPU's {cpu_rows}")
+    out["recall_curve"].update(rows=rows, margin_diff=margin)
+    return out
+
+
+def print_tools(tp: dict) -> None:
+    """Phase 13's lines."""
+    b = tp["extract_bench"]
+    r = b["res"]
+    dev_part = "device time: not measured" if r["device_ms"] is None else (
+        f"device {r['device_ms']:.3f} ms per extract ({r['kernels_per_extract']:.1f} kernels), "
+        f"orb_describe {r['orb_describe_ms'] * 1e3:.2f} us = "
+        f"{100 * r['orb_describe_share']:.2f}% of it; top kernels "
+        + ", ".join(f"{k[:40]} {v:.3f} ms" for k, v in r["top"]))
+    print(f"tools 13a extract bench: {r['iters']} frames, dependent chain "
+          f"{r['ms_per_frame']:.3f} ms per frame ({r['fps']:.1f} fps) on the host clock; "
+          f"{dev_part}; {b['s']:.1f} s; launches {b['launches']}", flush=True)
+    t = tp["train_vocab"]
+    print(f"tools 13b train_vocab: 4 views, {t['n_desc']} descriptors, 256 words; codebook on "
+          f"the card equal to the CPU's (k-means {t['kmeans_card_s']:.2f} s on the card, "
+          f"{t['kmeans_cpu_s']:.2f} s on the CPU); {t['entropy_card']}; extraction "
+          f"{t['s']:.1f} s; launches {t['launches']}", flush=True)
+    c = tp["recall_curve"]
+    rows = "; ".join(f"V {v} M {m}: r@1 {r1:.3f} r@3 {r3:.3f} margin {mg:+.4f}"
+                     for v, m, r1, r3, mg in c["rows"])
+    print(f"tools 13c recall curve: {TOOLS_PLACES} places; {rows}; the CPU's rows from the "
+          f"card's descriptors equal (margins within {c['margin_diff']:.2g}); {c['s']:.1f} s; "
+          f"launches {c['launches']}", flush=True)
+
+
 def patch_kernel_work(sel, angle) -> dict:
     """Per kernel, the bytes and operations that these keypoints need: the
     distinct pixels the windows touch (each read once), the keypoints, the
@@ -1887,6 +2007,12 @@ def main() -> int:
     print_euroc(ep)
     print(f"euroc: phase {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 13. the tools ---------------------------------------------------------
+    t0 = time.perf_counter()
+    tp = tools_phase(dev)
+    print_tools(tp)
+    print(f"tools: phase {time.perf_counter() - t0:.1f} s", flush=True)
+
     # report ----------------------------------------------------------------
     src = "orbslam3_tpu_torch/csrc/orb_patches.cu"
     replaces = {"ic_moments": "orbslam3_tpu/ops/pallas_patches.py:58",
@@ -1905,7 +2031,9 @@ def main() -> int:
                                **{p: sp[p]["launches"][k] for p in
                                   ("stereo", "rgbd", "stereo_inertial", "kb8_mono")},
                                **{"euroc_" + m.replace("-", "_"): ep[m]["launches"][k]
-                                  for m, *_ in EUROC_ARMS}},
+                                  for m, *_ in EUROC_ARMS},
+                               **{p: tp[p]["launches"][k] for p in
+                                  ("extract_bench", "train_vocab", "recall_curve")}},
          "max_abs_err": err[k], "ms": ev_ms[k], "plain_ms": plain_ms[k],
          "bound_ms": work[k]["bound_ms"], "bound_by": work[k]["bound_by"],
          "library_ms": None, "device_ms": dev_ms[k], "bytes": work[k]["bytes"],

@@ -362,7 +362,11 @@ class LoopCloser:
             # the VI prior is expressed in the pre-correction world
             system.frame_prior = None
             system._map_updated = True
-            system.vel = _row(system.map.kf_vel, kf_cur)
+            # the tracker's velocity rides the current keyframe's correction.
+            # JAX reads the keyframe's stored velocity instead, which the
+            # inertial System writes only after the keyframe step that closed
+            # the loop: zero, so its tracker restarts from rest (ROADMAP queue 3)
+            system.vel = _row(R_a, kf_cur) @ system.vel / _row(s_c, kf_cur)
             system.last_body = system._cam_to_body(R_cur, t_cur)
 
 

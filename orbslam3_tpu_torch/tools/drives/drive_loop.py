@@ -31,11 +31,12 @@ import time
 
 import numpy as np
 
+from .. import add_device_arg, device_name, device_of
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m orbslam3_tpu_torch.tools.drives.drive_loop")
-    ap.add_argument("--device", default="cuda",
-                    help="torch device of the System (default: the first CUDA device)")
+    add_device_arg(ap)
     args = ap.parse_args(argv)
 
     import torch
@@ -46,10 +47,8 @@ def main(argv=None) -> int:
     from ...slam_map import state as mapstate
     from ...utils import synth_render as sr
 
-    dev = torch.device("cuda", 0) if args.device == "cuda" else torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        ap.error("no CUDA device is available; pass --device cpu to run on the CPU")
-    print("device:", torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev, flush=True)
+    dev = device_of(ap, args.device)
+    print("device:", device_name(dev), flush=True)
 
     HW = (240, 376)
     K4 = (230.0, 230.0, 188.0, 120.0)

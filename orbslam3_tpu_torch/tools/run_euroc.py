@@ -24,6 +24,8 @@ import time
 
 import numpy as np
 
+from . import add_device_arg, device_of
+
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m orbslam3_tpu_torch.tools.run_euroc")
@@ -46,9 +48,7 @@ def _parser() -> argparse.ArgumentParser:
                     help="CLAHE clip limit (0 = off), applied in ingest")
     ap.add_argument("--timeshift", type=float, default=0.0,
                     help="cam->IMU time offset [s] (grabber parity)")
-    ap.add_argument("--device", default="cuda",
-                    help="torch device of the System (default: the first "
-                         "CUDA device; 'cpu' runs the plain versions)")
+    add_device_arg(ap)
     return ap
 
 
@@ -76,8 +76,6 @@ def main(argv=None, on_frame=None) -> dict:
     ap = _parser()
     args = ap.parse_args(argv)
 
-    import torch
-
     from .. import config as presets
     from ..eval import ate
     from ..features.extractor import OrbParams
@@ -85,9 +83,7 @@ def main(argv=None, on_frame=None) -> dict:
     from ..pipeline import inertial_system, stereo_system
     from ..pipeline import system as slam
 
-    dev = torch.device("cuda", 0) if args.device == "cuda" else torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        ap.error("no CUDA device is available; pass --device cpu to run on the CPU")
+    dev = device_of(ap, args.device)
     seq = euroc.EurocSequence(args.sequence)
     tumvi = args.dataset == "tumvi"
     cam = euroc.TUMVI_CAM0 if tumvi else euroc.EUROC_CAM0

@@ -118,6 +118,16 @@ def range_table(trace: dict, names) -> tuple[dict, float, int]:
     return rows, busy, sum(e["cat"] == "kernel" for e in dev.values())
 
 
+def chrome_trace(prof) -> dict:
+    """The Chrome trace of a finished torch.profiler run, as a dict."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f)
+
+
 class DeviceWork:
     """A context manager that profiles what runs inside it on the current
     CUDA device: afterwards `launches` (kernels), `device_ms` (kernels,
@@ -141,15 +151,10 @@ class DeviceWork:
         return self
 
     def __exit__(self, *exc):
-        import tempfile
         import torch
         torch.cuda.synchronize()
         self._prof.__exit__(*exc)
-        with tempfile.TemporaryDirectory() as tmp:
-            path = os.path.join(tmp, "trace.json")
-            self._prof.export_chrome_trace(path)
-            with open(path) as f:
-                trace = json.load(f)
+        trace = chrome_trace(self._prof)
         work = [e for e in trace["traceEvents"] if e.get("cat") in _DEVICE_CATS]
         self.launches = sum(e["cat"] == "kernel" for e in work)
         self.device_ms = sum(e["dur"] for e in work) / 1e3
@@ -164,8 +169,6 @@ def kernel_durations(fn, names, runs: int = 50) -> tuple[dict, int]:
     and read the kernel records of the Chrome trace: per name in `names`,
     the device durations in microseconds of the kernels whose name contains
     it; also the number of kernels of any name launched per run."""
-    import tempfile
-
     import torch
 
     fn()
@@ -175,11 +178,7 @@ def kernel_durations(fn, names, runs: int = 50) -> tuple[dict, int]:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            kernels = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    kernels = [e for e in chrome_trace(prof)["traceEvents"] if e.get("cat") == "kernel"]
     return ({n: [e["dur"] for e in kernels if n in e["name"]] for n in names},
             len(kernels) // runs)
 

@@ -4,8 +4,10 @@ from raw frames on the card, the 65536-word vocabulary and a relocalization
 on the card, the VI BA, the COO BA and the post-loop GBA, a loop closure, a
 map merge and the GNSS BA on the card against the CPU; a stereo pair through
 `track_stereo` on the card against the CPU, `orb_describe`'s launches per
-stereo frame, `fisheye_stereo_match` on the card against the CPU, and the
-sequence runner's mono arm on the card.
+stereo frame, `fisheye_stereo_match` on the card against the CPU, the
+sequence runner's mono arm on the card, the extraction bench on the card
+against the CPU's extraction, and the recall curve's rows on the card against
+the CPU's from the same descriptors.
 
 These need an NVIDIA GPU with nvcc and are marked `gpu`; without a card they
 skip.  With a GPU: `python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest`
@@ -619,3 +621,39 @@ def test_run_euroc_mono_arm_on_the_card(dev, tmp_path, capsys):
     assert sys_.map.pt_xyz.device.type == "cuda" and sys_.n_resets == 0
     assert len(sys_.trajectory) > 12
     assert not any("_image_on_device" in s or "_extract" in s for s in found), found
+
+
+def test_extract_bench_on_the_card_matches_the_cpu(dev):
+    """`drive_extract_bench` on the card: one `orb_describe` per extraction
+    (the first call, the chain, the profiled steps), a device time per
+    `extract` with `orb_describe`'s share of it; its frame extracted on the
+    card and on the CPU: the same level-0 keypoints and descriptors."""
+    from orbslam3_tpu_torch.tools.drives import drive_extract_bench as bench
+    orb_patches.reset_counters()
+    res = bench.main(["4"])
+    assert orb_patches.launch_counts() == {"ic_moments": 0, "brief_desc": 0,
+                                           "orb_describe": 1 + 4 + bench.N_PROFILED}
+    assert res["device_ms"] > 0 and 0 < res["orb_describe_share"] < 1
+    assert res["kernels_per_extract"] > 1 and len(res["top"]) == 5
+    img = torch.from_numpy(bench.make_frames(1)[0])
+    p = OrbParams(n_features=1200, n_levels=8)
+    ff = extractor.extract(img.to(dev), p)
+    ref = extractor.extract(img, p)
+    lv0 = ref.octave == 0
+    assert int(lv0.sum()) > 100
+    assert torch.equal(ff.xy.cpu()[lv0], ref.xy[lv0])
+    assert torch.equal(ff.desc.cpu()[lv0], ref.desc[lv0])
+
+
+def test_recall_rows_on_the_card_match_the_cpu(dev):
+    """The recall curve's descriptors made on the card (`orb_describe` twice
+    per place), then its rows scored on the card and on the CPU from them:
+    the same recall@1 and recall@3, margins within 1e-5."""
+    from orbslam3_tpu_torch.tools import vocab_recall_curve as rc
+    orb_patches.reset_counters()
+    desc = rc.make_descriptors(4, 8, dev)
+    assert orb_patches.launch_counts()["orb_describe"] == 8
+    got = rc.recall_rows(desc, (4096,), (2, 4), dev, echo=False)
+    ref = rc.recall_rows(desc, (4096,), (2, 4), "cpu", echo=False)
+    assert [r[:4] for r in got] == [r[:4] for r in ref]
+    np.testing.assert_allclose([r[4] for r in got], [r[4] for r in ref], atol=1e-5, rtol=0)

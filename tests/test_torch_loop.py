@@ -565,3 +565,32 @@ def test_try_close_inertial_4dof_matches_jax(monkeypatch):
     np.testing.assert_allclose(_np(both.t.vel), _np(both.j.vel), atol=1e-4)
     np.testing.assert_allclose(_np(both.t.vel), _np(m.kf_vel[kr]), atol=1e-6)
     assert both.t.frame_prior is None and both.t._map_updated
+
+
+def test_try_close_inertial_transports_the_tracker_velocity(monkeypatch):
+    """The same closure as the InertialSystem meets it: the keyframe that
+    closes the loop has no stored velocity yet (the inertial System writes it
+    after the keyframe step, as JAX's does), while the tracker moves.  The
+    port's tracker velocity rides the current keyframe's correction (its
+    speed kept: the 4-DoF graph has s = 1); JAX's restarts from zero, the
+    stored velocity (ROADMAP queue 3).  The map is JAX's as in
+    `test_try_close_inertial_4dof_matches_jax`."""
+    both = Both(inertial=True)
+    kr, ff, pt_dup, X0 = _revisit_scene(both, inertial=True)
+    vels = np.zeros((CAP["n_kf"], 3), np.float32)
+    for k in range(kr):
+        vels[k] = [0.5, 0.1 * k, -0.2]
+    both.j.map = both.j.map._replace(kf_vel=jnp.asarray(vels))
+    both.t.map = both.t.map._replace(kf_vel=torch.from_numpy(vels.copy()))
+    both.at(kr, traj=False)
+    v = np.array([0.5, 0.1 * kr, -0.2], np.float32)
+    both.j.vel, both.t.vel = jnp.asarray(v), torch.from_numpy(v.copy())
+    both.j.last_body = both.j._cam_to_body(both.j.R_cur, both.j.t_cur)
+    both.t.last_body = both.t._cam_to_body(both.t.R_cur, both.t.t_cur)
+    R_old = both.t.map.kf_R[kr].clone()
+    both.check(both.close(kr, ff, monkeypatch), kr, t_tol=2e-4, relative=True)
+    assert not np.any(_np(both.j.vel))
+    R_new = both.t.map.kf_R[kr]
+    np.testing.assert_allclose(_np(both.t.vel), _np(R_new.T @ R_old @ torch.from_numpy(v)),
+                               atol=1e-6)
+    assert np.linalg.norm(_np(both.t.vel)) == pytest.approx(np.linalg.norm(v), rel=1e-6)
