@@ -22,24 +22,34 @@ new points at most):
      frame) and holds them together: K1 moments bit-equal on level-0
      keypoints and within 1e-5 * sum(|w| * I) elsewhere (the summation order
      differs on non-integer pixels); K2 descriptors bit-identical given the
-     same angles; the one-launch kernel `orb_describe`: moments bit-equal to
-     K1's, angles bit-equal to the plain version's on level-0 keypoints and
-     elsewhere within the angle that K1's moment tolerance allows (the
-     number of keypoints whose angle bin differs is printed), descriptors
-     bit-identical to the plain version's at the kernel's own angles.  Per
-     kernel: the CUDA-event time around one launch (median of 50), the
-     device duration of the kernel itself from torch.profiler's kernel
-     records (median of 50), and the bound: the bytes these keypoints need
-     (distinct pixels touched, tables, keypoints, outputs; each once) over
-     3.35 TB/s, or the operations over 67 TFLOP/s, whichever is larger.  No
-     PyTorch call computes any of the three functions (`library_ms` null);
+     same angles; the one-launch kernels, `orb_describe` (the Hopper design
+     that every path runs: a persistent grid, both windows and the bin table
+     staged in shared memory by asynchronous copies) and `orb_describe_warp`
+     (the earlier design, one warp per keypoint, kept to be timed beside it),
+     each: moments bit-equal to K1's, angles bit-equal to the plain
+     version's on level-0 keypoints and elsewhere within the angle that K1's
+     moment tolerance allows (the number of keypoints whose angle bin
+     differs is printed), descriptors bit-identical to the plain version's
+     at the kernel's own angles; and the two equal to each other.  Per
+     kernel: the CUDA-event time around one launch through its wrapper
+     (median of 50), the device duration of the kernel itself from
+     torch.profiler's kernel records (median of 50), and the bound: the
+     bytes these keypoints need (distinct pixels touched, tables,
+     keypoints, outputs; each once) over 3.35 TB/s, or the operations over
+     67 TFLOP/s, whichever is larger.  The two one-launch designs are timed
+     in turns (warp, Hopper, Hopper, warp: 100 event samples and 100 device
+     records each), and an empty kernel's device duration and events time
+     are printed as the floor of a launch; then the host clock per call of
+     `orb_describe`'s wrapper, its checks, its two output allocations and
+     the empty kernel's wrapper (2000 calls each, unsynchronised).  No PyTorch call computes any of
+     these functions (`library_ms` null);
   4. slice: seeds a map from 4 ground-truth keyframes, builds the local
      view, tracks 24 frames with `frame_step.track_frame` and holds every
      frame to the gates (inliers >= 30, camera centre within 0.05 world
      units and rotation within 0.5 degrees of ground truth).  The launch
      counters are reset before this phase and `orb_describe`'s must equal
-     the number of `extract` calls in it (4 + 24), the two single kernels' 0
-     (they are launched by phase 3 only);
+     the number of `extract` calls in it (4 + 24), the two single kernels'
+     and `orb_describe_warp`'s 0 (they are launched by phase 3 only);
   5. mapping: seeds the map and the feature bank again and runs bench.py's
      full-system cadence (bench.py:121,166): 48 tracked frames with a
      keyframe step after every 6th (`system.kf_step`, `kf_pose_refresh`,
@@ -229,7 +239,8 @@ new points at most):
      descriptors the card made: the same recall@1 and recall@3, margins
      within 1e-5.
 
-Each phase prints one line (phase 6 three more before it, phase 7 four more
+Each phase prints one line (phase 3 one per kernel, the floor and the host
+line after it; phase 6 three more before it, phase 7 four more
 after it: kernels per call and device time of `add_keyframe` and of the two
 halves of an attempt, from torch.profiler's kernel records; phase 8 one per
 frame kind after it; phase 9 one per part, one per timed stage and its
@@ -587,7 +598,7 @@ def inertial_phase(dev) -> dict:
     phase_s = time.perf_counter() - t0
     launches = orb_patches.launch_counts()
     bad, st = scene.check_gates(cfg, sys_, d)
-    if launches != {"ic_moments": 0, "brief_desc": 0, "orb_describe": cfg.frames}:
+    if launches != orb_patches.path_counts(cfg.frames):
         bad.append(f"launch counters {launches} for {cfg.frames} frames")
     for name, tensor in (("map", sys_.map.pt_xyz), ("bank", sys_.bank.xy),
                          ("view", sys_.view.xyz), ("bias", sys_.bias)):
@@ -1377,7 +1388,7 @@ def sensors_phase(scfg, sframes, dev) -> dict:
                          on_frame=fk.on_frame)
         launches = orb_patches.launch_counts()
         bad, stats = gates(sys_, d)
-        if launches != {"ic_moments": 0, "brief_desc": 0, "orb_describe": n_extract}:
+        if launches != orb_patches.path_counts(n_extract):
             bad.append(f"launch counters {launches} for {n_extract} extractions")
         for what, tensor in (("map", sys_.map.pt_xyz), ("bank", sys_.bank.xy)):
             if tensor.device.type != "cuda":
@@ -1521,7 +1532,7 @@ def euroc_phase(dev) -> dict:
                 bad.append(f"ATE {None if r is None else r['rmse']} against a span of {span}")
             elif metric and not abs(r["scale"] - 1.0) < 0.1:
                 bad.append(f"scale {r['scale']}")
-            want = {"ic_moments": 0, "brief_desc": 0, "orb_describe": per_frame * n_run}
+            want = orb_patches.path_counts(per_frame * n_run)
             if launches != want:
                 bad.append(f"launch counters {launches} for {per_frame * n_run} extractions")
             for what, tensor in (("map", sys_.map.pt_xyz), ("bank", sys_.bank.xy)):
@@ -1600,7 +1611,7 @@ def tools_phase(dev) -> dict:
             res = fn()
         launches = orb_patches.launch_counts()
         out[name] = dict(launches=launches, s=time.perf_counter() - t0)
-        if launches != {"ic_moments": 0, "brief_desc": 0, "orb_describe": want}:
+        if launches != orb_patches.path_counts(want):
             _fail(f"tools {name}: launch counters {launches}, {want} extractions")
         return res
 
@@ -1786,63 +1797,121 @@ def main() -> int:
     if diff_bits != 0:
         _fail(f"K2 brief_desc: descriptors differ from the twin ({diff_bits} bits)")
 
-    # the one-launch kernel against the composition of the plain versions
-    ang_f, desc_f, mom_f = orb_patches.orb_describe(atlas, blur, xy, with_moments=True)
+    # the one-launch kernels against the composition of the plain versions:
+    # the Hopper design (`orb_describe`, the one every path runs) and the
+    # earlier one-warp-per-keypoint design (`orb_describe_warp`), each held
+    # to the same gates
     ang_p, _ = orb_patches.describe_plain(atlas, blur, xy)
-    torch.cuda.synchronize()
-    if not torch.equal(mom_f, mom_k):
-        _fail("orb_describe: moments differ from ic_moments'")
-    if not torch.equal(ang_f[lv0], ang_p[lv0]):
-        _fail("orb_describe: level-0 angles differ from the plain version's")
     ang_tol = torch.rad2deg(1e-5 * torch.linalg.norm(mass, dim=1)
                             / torch.linalg.norm(mom_t, dim=1)) + 1e-4
-    d_ang = (ang_f - ang_p).abs()
-    d_ang = torch.minimum(d_ang, 360.0 - d_ang)
-    if bool((d_ang > ang_tol).any()):
-        _fail(f"orb_describe: angle off by {d_ang.max().item()} deg")
-    bins_off = int((brief.angle_bins(ang_f) != brief.angle_bins(ang_p)).sum())
-    bins_off_lv0 = int((brief.angle_bins(ang_f) != brief.angle_bins(ang_p))[lv0].sum())
-    if bins_off_lv0:
-        _fail(f"orb_describe: {bins_off_lv0} level-0 keypoints in another angle bin")
-    fused_bits = int(brief.unpack_bits(
-        desc_f ^ brief.compute_descriptors(blur, xy, ang_f)).sum(dim=1).max().item())
-    if fused_bits != 0:
-        _fail(f"orb_describe: descriptors differ from the plain version ({fused_bits} bits)")
+
+    def hold(name, describe):
+        ang_f, desc_f, mom_f = describe(atlas, blur, xy, with_moments=True)
+        torch.cuda.synchronize()
+        if not torch.equal(mom_f, mom_k):
+            _fail(f"{name}: moments differ from ic_moments'")
+        if not torch.equal(ang_f[lv0], ang_p[lv0]):
+            _fail(f"{name}: level-0 angles differ from the plain version's")
+        d_ang = (ang_f - ang_p).abs()
+        d_ang = torch.minimum(d_ang, 360.0 - d_ang)
+        if bool((d_ang > ang_tol).any()):
+            _fail(f"{name}: angle off by {d_ang.max().item()} deg")
+        bins_off = brief.angle_bins(ang_f) != brief.angle_bins(ang_p)
+        if int(bins_off[lv0].sum()):
+            _fail(f"{name}: {int(bins_off[lv0].sum())} level-0 keypoints in another angle bin")
+        bits = int(brief.unpack_bits(
+            desc_f ^ brief.compute_descriptors(blur, xy, ang_f)).sum(dim=1).max().item())
+        if bits != 0:
+            _fail(f"{name}: descriptors differ from the plain version ({bits} bits)")
+        return ang_f, desc_f, d_ang, int(bins_off.sum()), bits
+
+    ang_f, desc_f, d_ang, bins_off, fused_bits = hold("orb_describe", orb_patches.orb_describe)
+    ang_w, desc_w, d_ang_w, bins_off_w, warp_bits = hold("orb_describe_warp",
+                                                         orb_patches.orb_describe_warp)
+    if not (torch.equal(ang_w, ang_f) and torch.equal(desc_w, desc_f)):
+        _fail("orb_describe and orb_describe_warp give different angles or descriptors")
 
     calls = {"ic_moments": lambda: orb_patches.ic_moments(atlas, xy),
              "brief_desc": lambda: orb_patches.brief_descriptors(blur, xy, angle),
+             "orb_describe_warp": lambda: orb_patches.orb_describe_warp(atlas, blur, xy),
              "orb_describe": lambda: orb_patches.orb_describe(atlas, blur, xy)}
     plains = {"ic_moments": lambda: orient.ic_moments(atlas, xy),
               "brief_desc": lambda: brief.compute_descriptors(blur, xy, angle),
               "orb_describe": lambda: orb_patches.describe_plain(atlas, blur, xy)}
-    ev_ms = {k: _event_ms(f) for k, f in calls.items()}
     plain_ms = {k: _event_ms(f) for k, f in plains.items()}
+    plain_ms["orb_describe_warp"] = plain_ms["orb_describe"]    # the same function
     work = patch_kernel_work(sel, ang_f)
-    # device durations of the kernels themselves, each through its wrapper,
-    # and how many kernels one call of the extractor's last stage launches
-    dev_ms = {}
-    for k, f in calls.items():
-        durs, _ = profile_keyframe.kernel_durations(f, [k + "_kernel"])
-        dev_ms[k] = statistics.median(durs[k + "_kernel"]) / 1e3 if durs[k + "_kernel"] else None
+    work["orb_describe_warp"] = work["orb_describe"]
+
+    # CUDA events around one launch through the wrapper (median of 50) and
+    # the device durations of the kernels themselves (torch.profiler, 50
+    # records), each kernel through its wrapper; the two one-launch designs
+    # in turns (warp, Hopper, Hopper, warp), and a kernel that does nothing
+    # as the floor of a launch's device duration
+    def device_us(fn, name):
+        durs, _ = profile_keyframe.kernel_durations(fn, [name])
+        return durs[name]
+
+    ev_ms, dev_recs = {}, {}
+    for k in ("ic_moments", "brief_desc", "orb_describe_warp", "orb_describe",
+              "orb_describe", "orb_describe_warp"):
+        ev_ms.setdefault(k, []).append(_event_ms(calls[k]))
+        dev_recs.setdefault(k, []).extend(device_us(calls[k], k + "_kernel"))
+    turns = {k: [round(t * 1e3, 3) for t in ev_ms[k]]
+             for k in ("orb_describe_warp", "orb_describe")}
+    ev_ms = {k: statistics.median(v) for k, v in ev_ms.items()}
+    dev_ms = {k: statistics.median(v) / 1e3 if v else None for k, v in dev_recs.items()}
+    floor_recs = device_us(lambda: orb_patches.empty_kernel(dev), "orb_empty_kernel")
+    floor_ms = statistics.median(floor_recs) / 1e3 if floor_recs else None
+    floor_ev_ms = _event_ms(lambda: orb_patches.empty_kernel(dev))
+    # how many kernels one call of the extractor's last stage launches
     _, per_call = profile_keyframe.kernel_durations(
         lambda: orb_patches.ic_angle_and_descriptors(atlas, blur, xy), [])
     # max_abs_err: moments for K1, descriptor bits for K2, degrees for the
-    # one-launch kernel (its descriptor bits stand under `desc_bits_off`)
+    # one-launch kernels (their descriptor bits stand under `desc_bits_off`)
     err = {"ic_moments": float(k1_err.max().item()), "brief_desc": float(diff_bits),
+           "orb_describe_warp": float(d_ang_w.max().item()),
            "orb_describe": float(d_ang.max().item())}
-    bits_off = {"ic_moments": None, "brief_desc": diff_bits, "orb_describe": fused_bits}
+    bits_off = {"ic_moments": None, "brief_desc": diff_bits,
+                "orb_describe_warp": warp_bits, "orb_describe": fused_bits}
+    geometry = orb_patches.launch_geometry(n, torch.cuda.get_device_properties(0)
+                                           .multi_processor_count)
     print(f"kernels: {n} keypoints, atlas {tuple(atlas.shape)}; K1 level-0 bit-equal, max|diff| "
-          f"{err['ic_moments']:.3g}; K2 bit-identical; orb_describe: moments bit-equal to K1's, "
-          f"level-0 angles bit-equal, max angle diff {d_ang.max().item():.3g} deg, "
-          f"{bins_off} keypoints in another bin than the plain version's (0 on level 0), "
-          f"descriptors bit-identical at its own angles; kernels per call of the last "
+          f"{err['ic_moments']:.3g}; K2 bit-identical; orb_describe and orb_describe_warp: "
+          f"moments bit-equal to K1's, level-0 angles bit-equal, max angle diff "
+          f"{d_ang.max().item():.3g} deg, {bins_off} keypoints in another bin than the plain "
+          f"version's (0 on level 0), descriptors bit-identical at their own angles, the two "
+          f"equal to each other; orb_describe's grid {geometry[0]} blocks x {geometry[1]} "
+          f"warps, {geometry[2]} bytes of shared memory; kernels per call of the last "
           f"extraction stage: {per_call}", flush=True)
     for k in calls:
-        d = "not measured" if dev_ms[k] is None else f"{dev_ms[k] * 1e3:.2f} us"
+        d = "not measured" if dev_ms[k] is None else f"{dev_ms[k] * 1e3:.3f} us"
         print(f"  {k}: device {d}, events {ev_ms[k] * 1e3:.2f} us, plain "
               f"{plain_ms[k] * 1e3:.2f} us, bound {work[k]['bound_ms'] * 1e3:.3f} us by "
               f"{work[k]['bound_by']} ({work[k]['bytes']} bytes, {work[k]['ops']} operations)",
               flush=True)
+    fl = "not measured" if floor_ms is None else f"{floor_ms * 1e3:.3f} us"
+    print(f"  floor: an empty kernel, device {fl}, events {floor_ev_ms * 1e3:.2f} us; in turns "
+          f"(warp, Hopper, Hopper, warp) events us: orb_describe_warp "
+          f"{turns['orb_describe_warp']}, orb_describe {turns['orb_describe']}", flush=True)
+
+    # where a launch's host time goes: host clock per call, 2000 calls each,
+    # nothing synchronised between them
+    def host_us(fn, calls=2000):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        return t
+
+    host = {"orb_describe": host_us(calls["orb_describe"]),
+            "its checks": host_us(lambda: orb_patches._check_pair(atlas, blur, xy)),
+            "its two outputs": host_us(lambda: orb_patches._outputs(n, dev, False)),
+            "empty_kernel": host_us(lambda: orb_patches.empty_kernel(dev))}
+    print("  host us per call: " + ", ".join(f"{k} {v:.2f}" for k, v in host.items()),
+          flush=True)
 
     # 4. the slice ----------------------------------------------------------
     orb_patches.reset_counters()
@@ -1853,7 +1922,7 @@ def main() -> int:
     m, results, secs = scene.track(cfg, m0, view, frames, dev)
     n_extract = len(cfg.seed_frames) + len(cfg.track_frames)
     launches = orb_patches.launch_counts()
-    if launches != {"ic_moments": 0, "brief_desc": 0, "orb_describe": n_extract}:
+    if launches != orb_patches.path_counts(n_extract):
         _fail(f"launch counters {launches} for {n_extract} extract calls")
     bad = scene.check_gates(cfg, results)
     if bad:
@@ -1874,7 +1943,7 @@ def main() -> int:
     mp = mapping_phase(kcfg, dev)
     phase_s = time.perf_counter() - t0
     kf_launches = mp["launches"]
-    if kf_launches != {"ic_moments": 0, "brief_desc": 0, "orb_describe": mp["n_extract"]}:
+    if kf_launches != orb_patches.path_counts(mp["n_extract"]):
         _fail(f"launch counters {kf_launches} for {mp['n_extract']} extract calls")
     fs = mp["first_step"]
     print(f"mapping: first keyframe step on the card and on the CPU agree ({fs['n_new']} "
@@ -1901,8 +1970,7 @@ def main() -> int:
     sys_s = time.perf_counter() - t0
     sys_launches = orb_patches.launch_counts()
     bad, st = scene.check_system_gates(sys_, drive)
-    if sys_launches != {"ic_moments": 0, "brief_desc": 0,
-                        "orb_describe": len(scfg.track_frames)}:
+    if sys_launches != orb_patches.path_counts(len(scfg.track_frames)):
         bad.append(f"launch counters {sys_launches} for {len(scfg.track_frames)} frames")
     for name, tensor in (("map", sys_.map.pt_xyz), ("bank", sys_.bank.xy),
                          ("view", sys_.view.xyz)):
@@ -1940,7 +2008,7 @@ def main() -> int:
     reloc_launches = rl["launches"]
     rd = rl["drive"]
     n_fed = rl["n_blank"] + len(rd.frames)
-    if reloc_launches != {"ic_moments": 0, "brief_desc": 0, "orb_describe": n_fed}:
+    if reloc_launches != orb_patches.path_counts(n_fed):
         _fail(f"launch counters {reloc_launches} for {n_fed} frames")
     print(f"relocalization: {rl['n_registered']} keyframes in the database "
           f"({rl['db_bytes']} bytes on the card, unpacked codebook {rl['codebook_bytes']}); "
@@ -1977,8 +2045,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lp = {**async_loop_phase(scfg, sframes, dev), **closure_phase(dev)}
     loop_launches = orb_patches.launch_counts()
-    if loop_launches != {"ic_moments": 0, "brief_desc": 0,
-                         "orb_describe": len(scfg.track_frames)}:
+    if loop_launches != orb_patches.path_counts(len(scfg.track_frames)):
         _fail(f"launch counters {loop_launches} for {len(scfg.track_frames)} frames")
     print_loop(lp, st)
     print(f"loop: phase {time.perf_counter() - t0:.1f} s; launches {loop_launches}", flush=True)
@@ -1989,7 +2056,7 @@ def main() -> int:
     ap = atlas_phase(scfg, sframes, dev)
     atlas_launches = orb_patches.launch_counts()
     n_atlas = 2 * len(scfg.track_frames) + ap["checkpoint"]["frames"] + 1
-    if atlas_launches != {"ic_moments": 0, "brief_desc": 0, "orb_describe": n_atlas}:
+    if atlas_launches != orb_patches.path_counts(n_atlas):
         _fail(f"launch counters {atlas_launches} for {n_atlas} extract calls")
     print_atlas(ap)
     print(f"atlas: phase {time.perf_counter() - t0:.1f} s; launches {atlas_launches}",
@@ -2017,10 +2084,12 @@ def main() -> int:
     src = "orbslam3_tpu_torch/csrc/orb_patches.cu"
     replaces = {"ic_moments": "orbslam3_tpu/ops/pallas_patches.py:58",
                 "brief_desc": "orbslam3_tpu/ops/pallas_patches.py:76",
+                "orb_describe_warp": "orbslam3_tpu/ops/pallas_patches.py:180",
                 "orb_describe": "orbslam3_tpu/ops/pallas_patches.py:180"}
     # launches: of the system path's own run.  No path launches the two
-    # single kernels: `orb_describe` carries their work in one launch, and
-    # phase 3 alone launches them, to hold them against their plain versions
+    # single kernels or the warp design: `orb_describe` carries their work in
+    # one launch, and phase 3 alone launches them, to hold them against their
+    # plain versions and to time them beside it
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": replaces[k],
          "launches": sys_launches[k],
@@ -2037,8 +2106,10 @@ def main() -> int:
          "max_abs_err": err[k], "ms": ev_ms[k], "plain_ms": plain_ms[k],
          "bound_ms": work[k]["bound_ms"], "bound_by": work[k]["bound_by"],
          "library_ms": None, "device_ms": dev_ms[k], "bytes": work[k]["bytes"],
-         "operations": work[k]["ops"], "desc_bits_off": bits_off[k]}
-        for k in ("ic_moments", "brief_desc", "orb_describe")]}), flush=True)
+         "operations": work[k]["ops"], "desc_bits_off": bits_off[k],
+         "floor_device_ms": floor_ms}
+        for k in ("ic_moments", "brief_desc", "orb_describe_warp", "orb_describe")]}),
+        flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -145,9 +145,13 @@ def try_merge(system, ff, kf_idx: int, min_matches: int = 25, min_inliers: int =
         if hasattr(system, "frame_prior"):   # inertial tracker state
             system.frame_prior = None
             system._map_updated = True
-            # the velocity was carried with the map (transform_map); biases
-            # do not depend on the frame
-            system.vel = _row(system.map.kf_vel, ki)
+            # the tracker's velocity rides the merge's world Sim3, as the
+            # keyframes' stored velocities do (transform_map); biases do not
+            # depend on the frame.  JAX reads the welded keyframe's stored
+            # velocity instead, which the inertial System writes only after
+            # the keyframe step that merged: zero, so its tracker restarts
+            # from rest (ROADMAP queue 3)
+            system.vel = sw * (Rw @ system.vel)
             system.last_body = system._cam_to_body(R_cur, t_cur)
         # one read: the world Sim3 for the trajectory, the merged keyframes'
         # validity for the database

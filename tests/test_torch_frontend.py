@@ -201,6 +201,49 @@ def test_kernel_source_keeps_the_twins_constants():
     assert "sm_90a" in " ".join(orb_patches.NVCC_FLAGS)
 
 
+_PRESETS = ("euroc_mono", "euroc_mono_inertial", "euroc_stereo", "euroc_stereo_rectified",
+            "euroc_stereo_inertial", "euroc_rgbd", "tumvi_mono", "tumvi_mono_inertial",
+            "tumvi_stereo_inertial")
+
+
+def test_orb_describe_launch_geometry_fits_every_preset():
+    """`orb_describe`'s persistent grid (the kernel runs only on the card;
+    its geometry is computed here): for every preset's atlas width and every
+    keypoint count up to the largest preset's, on an H100 (132 SMs) and on
+    smaller cards, at most one block per SM, at most WARPS_MAX warps a block,
+    every keypoint covered, one round while N <= WARPS_MAX x #SMs, and the
+    dynamic shared memory within a Hopper block's 232,448 bytes.  The
+    layout's numbers are the CUDA source's."""
+    from orbslam3_tpu_torch import config
+    cfgs = [getattr(config, name)() for name in _PRESETS]
+    cfgs = [c[0] if isinstance(c, tuple) else c for c in cfgs]
+    widths = {c.image_hw[1] for c in cfgs} | {188, 376, 500, 512, 752}
+    n_max = max(sum(c.orb.features_per_level()) for c in cfgs)
+    assert n_max == 1200 and widths >= {512, 752}
+    for n_sm in (132, 114, 78):
+        for n in range(1, n_max + 1):
+            blocks, warps, smem = orb_patches.launch_geometry(n, n_sm)
+            assert 1 <= blocks <= n_sm and 1 <= warps <= orb_patches.WARPS_MAX
+            assert smem == orb_patches.TABLE_BYTES + warps * orb_patches.SLOT_BYTES
+            assert smem <= orb_patches.SMEM_LIMIT
+            assert blocks * warps >= min(n, orb_patches.WARPS_MAX * n_sm)
+            assert (blocks - 1) * warps < n                  # no block without work
+    assert orb_patches.launch_geometry(1200, 132) == (120, 10, 146_112)
+    assert orb_patches.launch_geometry(5000, 132)[:2] == (132, 10)
+    with pytest.raises(ValueError):
+        orb_patches.launch_geometry(0, 132)
+    src = orb_patches.SOURCE.read_text()
+    assert f"kMaxWarps = {orb_patches.WARPS_MAX};" in src
+    assert "kRawChunks = 9;" in src and "kBlurChunks = 11;" in src
+    assert orb_patches.SLOT_BYTES == (torient.HALF_PATCH_SIZE * 2 + 1) * 36 * 4 + 39 * 44 * 4
+    # the staged blurred rows reach every rotated pattern point
+    assert f"kBriefReach = {orb_patches.BRIEF_REACH};" in src
+    assert np.abs(tbrief._binned_offsets()).max() <= orb_patches.BRIEF_REACH
+    table = orb_patches._table_bytes()
+    assert table.size == orb_patches.TABLE_BYTES
+    np.testing.assert_array_equal(table[-64:].view(np.int32), torient._umax_table())
+
+
 # ------------------------------------------------------------------ extract
 def test_extract_small_matches_jax():
     """120x188, 300 features over 4 levels.  Level 0 (integer pixels):

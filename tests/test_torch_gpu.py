@@ -1,4 +1,5 @@
-"""The ORB patch kernels (CUDA, sm_90a) against their plain PyTorch twins, the
+"""The ORB patch kernels (CUDA, sm_90a) against their plain PyTorch twins and
+`orb_describe` against its warp design at every size and atlas width, the
 keyframe step on the card against the same step on the CPU, the `System`
 from raw frames on the card, the 65536-word vocabulary and a relocalization
 on the card, the VI BA, the COO BA and the post-loop GBA, a loop closure, a
@@ -130,8 +131,7 @@ def test_extract_launches_each_kernel_once(dev):
     orb_patches.reset_counters()
     ff = extractor.extract(img, p)
     torch.cuda.synchronize()
-    assert orb_patches.launch_counts() == {
-        "ic_moments": 0, "brief_desc": 0, "orb_describe": 1}
+    assert orb_patches.launch_counts() == orb_patches.path_counts(1)
     ref = extractor.extract(img.cpu(), p)
     lv0 = ref.octave == 0
     assert torch.equal(ff.xy.cpu()[lv0], ref.xy[lv0])
@@ -150,6 +150,118 @@ def test_kernel_wrappers_refuse_bad_inputs(dev):
     with pytest.raises(ValueError):
         orb_patches.orb_describe(img, torch.zeros(64, 65, device=dev),
                                  torch.zeros(4, 2, device=dev))       # atlases differ
+    for describe in (orb_patches.orb_describe, orb_patches.orb_describe_warp):
+        with pytest.raises(ValueError):
+            describe(img, img, torch.zeros(4, 2))                     # xy on the CPU
+        with pytest.raises(ValueError):
+            describe(img, img.t(), torch.zeros(4, 2, device=dev))     # not contiguous
+        with pytest.raises(ValueError):
+            describe(img, img.double(), torch.zeros(4, 2, device=dev))
+        with pytest.raises(ValueError):
+            describe(img, img, torch.zeros(0, 2, device=dev))         # no keypoints
+        with pytest.raises(ValueError):
+            describe(torch.zeros(38, 64, device=dev), torch.zeros(38, 64, device=dev),
+                     torch.zeros(4, 2, device=dev))                   # lower than 39
+
+
+def _edge_keypoints(rng, h, w, n):
+    """n keypoints, a quarter of them each within 16 px of the left, bottom,
+    right and top edge (their windows clamped there), the rest anywhere."""
+    xy = np.stack([rng.uniform(0, w - 1, n), rng.uniform(0, h - 1, n)], 1)
+    q = np.array_split(np.arange(n), 4)
+    xy[q[0], 0] = rng.uniform(0, 16, len(q[0]))
+    xy[q[1], 1] = rng.uniform(h - 16, h - 1, len(q[1]))
+    xy[q[2], 0] = rng.uniform(w - 16, w - 1, len(q[2]))
+    xy[q[3], 1] = rng.uniform(0, 16, len(q[3]))
+    return xy.astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [1, 7, 1001, 5000])
+@pytest.mark.parametrize("integer", [True, False])
+def test_orb_describe_persistent_grid_matches_the_warp_design(dev, n, integer):
+    """The Hopper design against the warp design (`orb_describe_warp`) and
+    the plain version, at N = 1, N not a multiple of the block's warps (7,
+    1001) and N = 5000 (more than one round of the persistent grid on a
+    132-SM card), with windows clamped at all four edges: moments, angles and
+    descriptors bit-equal to the warp design's (the same arithmetic on the
+    same pixels), and test_orb_describe_kernel_matches_plain's assertions."""
+    rng = np.random.default_rng(10 + n)
+    h, w = 300, 500
+    raw = torch.from_numpy(_atlas(rng, h, w, integer)).to(dev)
+    blur = torch.from_numpy(_atlas(rng, h, w, True)).to(dev)
+    xy = torch.from_numpy(_edge_keypoints(rng, h, w, n)).to(dev)
+    orb_patches.reset_counters()
+    angle, desc, mom = orb_patches.orb_describe(raw, blur, xy, with_moments=True)
+    angle_w, desc_w, mom_w = orb_patches.orb_describe_warp(raw, blur, xy, with_moments=True)
+    mom_k1 = orb_patches.ic_moments(raw, xy)
+    angle_p, _ = orb_patches.describe_plain(raw, blur, xy)
+    torch.cuda.synchronize()
+    assert orb_patches.launch_counts() == {"ic_moments": 1, "brief_desc": 0,
+                                           "orb_describe_warp": 1, "orb_describe": 1}
+    assert torch.equal(mom, mom_w) and torch.equal(angle, angle_w)
+    assert torch.equal(desc, desc_w)
+    assert torch.equal(mom, mom_k1)
+    if integer:
+        assert torch.equal(angle, angle_p)
+    else:
+        wu, wv = orient._moment_weights()
+        absw = torch.from_numpy(np.abs(np.stack([wu, wv], -1))).to(dev)
+        mass = torch.einsum("nij,ijc->nc",
+                            orient.extract_patches(raw, xy.to(torch.int32),
+                                                    orient.HALF_PATCH_SIZE), absw)
+        tol = torch.rad2deg(1e-5 * torch.linalg.norm(mass, dim=1)
+                            / torch.linalg.norm(orient.ic_moments(raw, xy), dim=1)) + 1e-4
+        d = (angle - angle_p).abs()
+        assert bool((torch.minimum(d, 360.0 - d) <= tol).all())
+    assert bool(((angle >= 0) & (angle <= 360)).all())
+    assert torch.equal(desc, brief.compute_descriptors(blur, xy, angle))
+
+
+@pytest.mark.parametrize("hw", [(120, 188), (240, 376), (2210, 752), (512, 512),
+                                (300, 500), (64, 65), (41, 39), (300, 501)])
+def test_orb_describe_takes_every_atlas_width(dev, hw):
+    """Atlas widths of the presets, the drives and these tests (the rows
+    16-byte aligned: the kernel's 16-byte copies) and widths that are not a
+    multiple of 4 (its 4-byte copies): bit-equal to the warp design."""
+    rng = np.random.default_rng(hw[1])
+    h, w = hw
+    raw = torch.from_numpy(_atlas(rng, h, w, False)).to(dev)
+    blur = torch.from_numpy(_atlas(rng, h, w, True)).to(dev)
+    xy = torch.from_numpy(_edge_keypoints(rng, h, w, 1200)).to(dev)
+    got = orb_patches.orb_describe(raw, blur, xy, with_moments=True)
+    ref = orb_patches.orb_describe_warp(raw, blur, xy, with_moments=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+def test_orb_describe_takes_an_atlas_off_16_byte_alignment(dev):
+    """Contiguous atlases whose first pixel lies 4 bytes past a 16-byte
+    boundary (views into a larger buffer): the kernel's 4-byte copies, the
+    warp design's result."""
+    rng = np.random.default_rng(4)
+    h, w = 300, 500
+    buf = torch.empty(2 * h * w + 8, device=dev)
+    raw = buf[1:1 + h * w].view(h, w)
+    blur = buf[2 + h * w:2 + 2 * h * w].view(h, w)
+    raw.copy_(torch.from_numpy(_atlas(rng, h, w, False)))
+    blur.copy_(torch.from_numpy(_atlas(rng, h, w, True)))
+    assert raw.data_ptr() % 16 and blur.data_ptr() % 16
+    xy = torch.from_numpy(_edge_keypoints(rng, h, w, 700)).to(dev)
+    got = orb_patches.orb_describe(raw, blur, xy, with_moments=True)
+    ref = orb_patches.orb_describe_warp(raw, blur, xy, with_moments=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+def test_empty_kernel_launches(dev):
+    """The floor that chip_smoke.py times beside the kernels launches and
+    counts nowhere."""
+    orb_patches.reset_counters()
+    orb_patches.empty_kernel(dev)
+    torch.cuda.synchronize()
+    assert set(orb_patches.launch_counts().values()) == {0}
 
 
 def test_kf_step_on_the_card_matches_the_cpu(dev):
@@ -206,8 +318,7 @@ def test_system_boots_from_raw_frames_on_the_card(dev):
     assert sys_.device == dev
     assert sys_.map.pt_xyz.device == dev and sys_.bank.xy.device == dev
     assert sys_.view.xyz.device == dev
-    assert orb_patches.launch_counts() == {
-        "ic_moments": 0, "brief_desc": 0, "orb_describe": 60}
+    assert orb_patches.launch_counts() == orb_patches.path_counts(60)
 
 
 def test_assign_words_at_65536_words_on_the_card(dev):
@@ -550,7 +661,7 @@ def test_orb_describe_launches_twice_per_stereo_frame(dev):
     orb_patches.reset_counters()
     for i in range(3):
         sys_.track_stereo(left[i], right[i], i / 10.0)
-    assert orb_patches.launch_counts() == {"ic_moments": 0, "brief_desc": 0, "orb_describe": 6}
+    assert orb_patches.launch_counts() == orb_patches.path_counts(6)
     assert sys_.state == system.OK
     ff = extractor.extract(torch.from_numpy(left[2]).to(dev), slam.orb)
     orb_patches.reset_counters()
@@ -610,8 +721,7 @@ def test_run_euroc_mono_arm_on_the_card(dev, tmp_path, capsys):
     orb_patches.reset_counters()
     with sync_census._sync_warnings(found):
         res = run_euroc.main([tree, "--mode", "mono", "--out", str(tmp_path / "t.txt")])
-    assert orb_patches.launch_counts() == {"ic_moments": 0, "brief_desc": 0,
-                                           "orb_describe": 20}
+    assert orb_patches.launch_counts() == orb_patches.path_counts(20)
     first = capsys.readouterr().out.splitlines()[0]
     if native_ingest.available():
         assert first == "ingest: native"
@@ -631,8 +741,7 @@ def test_extract_bench_on_the_card_matches_the_cpu(dev):
     from orbslam3_tpu_torch.tools.drives import drive_extract_bench as bench
     orb_patches.reset_counters()
     res = bench.main(["4"])
-    assert orb_patches.launch_counts() == {"ic_moments": 0, "brief_desc": 0,
-                                           "orb_describe": 1 + 4 + bench.N_PROFILED}
+    assert orb_patches.launch_counts() == orb_patches.path_counts(1 + 4 + bench.N_PROFILED)
     assert res["device_ms"] > 0 and 0 < res["orb_describe_share"] < 1
     assert res["kernels_per_extract"] > 1 and len(res["top"]) == 5
     img = torch.from_numpy(bench.make_frames(1)[0])

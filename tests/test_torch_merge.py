@@ -9,6 +9,7 @@ its tolerance.
 """
 
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -157,12 +158,12 @@ SCENE_CAP = dict(n_kf=32, n_pt=4096, n_obs=16384)
 N_SCENE_KP = 256
 
 
-def _scene(inertial: bool):
+def _scene(inertial: bool, **cfg_kw):
     """TestInertialMerge's scene (tests/test_map_merge.py:50-135) in both
     packages: an archived session whose keyframe 0 sees 200 points, and a
     current map whose keyframe 1 sees the same place from a rigid offset.
-    Returns (JAX system, port system, the current keyframe's features as
-    numpy, the current map's point indices)."""
+    `cfg_kw` go to both SlamConfigs.  Returns (JAX system, port system, the
+    current keyframe's features as numpy, the current map's point indices)."""
     rng = np.random.default_rng(2)
     n_pts = 200
 
@@ -186,9 +187,9 @@ def _scene(inertial: bool):
     desc0 = rng.integers(0, 2 ** 32, (n_pts, 8), dtype=np.uint32)
     uv0 = np.asarray(jcam.pinhole_project(jnp.asarray(K4), jnp.asarray(X0)))
     jcfg = jsystem.SlamConfig(cam_params=K4, image_hw=(480, 752), enable_loop_closing=True,
-                              map_capacity=jstate.MapCapacity(**SCENE_CAP))
+                              map_capacity=jstate.MapCapacity(**SCENE_CAP), **cfg_kw)
     tcfg = tsystem.SlamConfig(cam_params=K4, image_hw=(480, 752), enable_loop_closing=True,
-                              map_capacity=MapCapacity(**SCENE_CAP))
+                              map_capacity=MapCapacity(**SCENE_CAP), **cfg_kw)
     if inertial:
         jsys = jis.InertialSystem(jcfg, jis.InertialConfig(imu_freq=200.0))
         tsys = tis.InertialSystem(tcfg, tis.InertialConfig(imu_freq=200.0), device="cpu")
@@ -316,6 +317,52 @@ def test_try_merge_matches_jax_on_the_two_session_scene(inertial):
     np.testing.assert_allclose(np.linalg.norm(g["kf_vel"][1:3], axis=1),
                                np.linalg.norm(pre["kf_vel"][:2], axis=1), rtol=1e-4)
     assert np.linalg.norm(-g["kf_R"][2].T @ g["kf_t"][2]) < 0.2
+
+
+def test_inertial_merge_in_keyframe_order_keeps_the_tracker_moving(monkeypatch):
+    """The real order of an inertial merge: a new keyframe of the moving
+    tracker (velocity [0.5, 0, -0.1]) goes through `_insert_keyframe` -- the
+    keyframe step, then `try_merge` from `_post_ba_stages` (system.py:876),
+    then the keyframe's velocity and bias are stored -- on
+    TestInertialMerge's scene with the IMU initialized, in both packages (the
+    port draws JAX's Sim3 samples).  Both weld the new keyframe (index 3) to
+    the same pose.  JAX sets the tracker's velocity to the welded keyframe's
+    stored one, which is written only after the step that merged: zero, a
+    restart from rest, stored as the keyframe's velocity too.  The port
+    transports the tracker's own velocity by the merge's world Sim3, as the
+    keyframes' stored velocities ride it (a deliberate difference, ROADMAP
+    queue 3): s R v, the same speed (a rigid weld), and the keyframe stores
+    it."""
+    jsys, tsys, ffB, ptc = _scene(True, local_view_points=2048)
+    v0 = np.asarray(jsys.vel).copy()
+    np.testing.assert_array_equal(tsys.vel.numpy(), v0)
+    assert np.linalg.norm(v0) > 0.5
+    bind = np.full(N_SCENE_KP, -1, np.int32)
+    bind[:len(ptc)] = ptc
+    jtr = types.SimpleNamespace(kp_pt=jnp.asarray(bind), R=jsys.R_cur, t=jsys.t_cur)
+    ttr = types.SimpleNamespace(kp_pt=torch.from_numpy(bind), R=tsys.R_cur, t=tsys.t_cur)
+    jsys._insert_keyframe(JFeatureFrame(**{k: jnp.asarray(v) for k, v in ffB.items()}),
+                          jtr, 11.0, 200)
+    real = tmerge.try_merge
+    monkeypatch.setattr(tmerge, "try_merge", lambda system, ff, kf_idx: real(
+        system, ff, kf_idx,
+        idx_fn=lambda kf, valid: _jax_draw(jax.random.PRNGKey(1000 + kf), valid)))
+    tsys._insert_keyframe(convert.frame_from_numpy(ffB), ttr, 11.0, 200)
+    assert jsys.atlas.n_maps == tsys.atlas.n_maps == 0
+    assert jsys.last_kf_idx == tsys.last_kf_idx == 3
+    assert (tsys.last_merge["kf"], tsys.last_merge["cand"], tsys.last_merge["kf_off"]) == (2, 0, 1)
+    np.testing.assert_allclose(tsys.R_cur.numpy(), np.asarray(jsys.R_cur), atol=1e-4)
+    np.testing.assert_allclose(tsys.t_cur.numpy(), np.asarray(jsys.t_cur), atol=1e-4)
+    # JAX: the tracker restarts from rest, and the keyframe stores it
+    np.testing.assert_array_equal(np.asarray(jsys.vel), np.zeros(3, np.float32))
+    np.testing.assert_array_equal(np.asarray(jsys.map.kf_vel[3]), np.zeros(3, np.float32))
+    # the port: the tracker's own velocity in the merged world
+    lm = tsys.last_merge
+    assert abs(lm["s"] - 1.0) < 1e-5
+    want = lm["s"] * lm["R"] @ v0
+    np.testing.assert_allclose(tsys.vel.numpy(), want, atol=1e-5)
+    np.testing.assert_allclose(np.linalg.norm(tsys.vel.numpy()), np.linalg.norm(v0), rtol=1e-5)
+    np.testing.assert_allclose(tsys.map.kf_vel[3].numpy(), tsys.vel.numpy(), atol=0)
 
 
 # --- the port's own drive (test_sessions_weld_on_revisit) --------------------------
