@@ -7,8 +7,9 @@ keyframe step, the whole `System` from raw frames, its recovery of a lost
 track by relocalization, the mono-inertial `System`, loop closing with
 the asynchronous keyframe chain, map merging, GNSS georeferencing, the
 checkpoint, the stereo, RGB-D, stereo-inertial and KB8 fisheye Systems
-(phase 11), the EuRoC / TUM-VI sequence runner (phase 12) and the
-extraction bench and vocabulary tools (phase 13), at the JAX package's default monocular configuration (480x752 image, 1200 ORB features over 8
+(phase 11), the EuRoC / TUM-VI sequence runner (phase 12), the
+extraction bench and vocabulary tools (phase 13) and the sharded BA within
+and across processes (phase 14), at the JAX package's default monocular configuration (480x752 image, 1200 ORB features over 8
 levels, map capacity 256 keyframes / 24576 points / 196608 observations, a
 local view of 8192 points over 12 keyframes; window BA caps 16 / 4096 /
 12288, 6 LM steps over an 8-keyframe window, 4 triangulation neighbours, 768
@@ -238,6 +239,34 @@ new points at most):
      (`orb_describe` 2 x 16), its rows scored again on the CPU from the
      descriptors the card made: the same recall@1 and recall@3, margins
      within 1e-5.
+ 14. distribution (`orbslam3_tpu_torch/parallel/`), each part with the
+     launch counters set to 0 just before it and read just after (no frame
+     is extracted: 0 launches of every kernel): (a) `dist_ba`'s
+     `dist_bundle_adjust` on 8 local shards of the card at
+     `tools/bench_multihost.py`'s per-shard width (`utils/dist_scene.py`:
+     32 cameras, 16,384 points, 65,536 exact observations, 4 LM steps of 32
+     PCG steps) in each comm mode: translations within 5e-3 and points within
+     5e-3 (mean) of the truth (`tests/test_dist_ba.py`'s gate), the modes
+     within 2e-3 of matvec's translations, the same solve on the CPU within
+     1e-4 (R, t, X), a second solve bit-equal to the first (the solver's
+     sums are deterministic on the card), the collectives per LM iteration
+     as counted (matvec 6 + PCG steps, dense 2, camshard 4 + 4 per PCG
+     step; printed beside JAX's docstring count), then the same solves
+     under an NCCL process group of world size 1 (NCCL's only form on one
+     card) bit-equal to those without; per mode the ms per LM iteration by
+     CUDA events and the blocking reads per solve.  (b) the monocular System
+     on `tests/test_engine_mesh.py`'s scene (`utils/engine_mesh.py`: 42
+     synthetic feature frames, caps 16 / 4096 / 12288) with
+     `ba_mesh_shards=8` and on one device through the COO PCG solver: JAX's
+     gates (both ATEs below 0.05, the two within 0.02, at least 5 keyframes
+     and more than 300 points sharded, no reset); the sharded window BAs by
+     CUDA events, and on the last map the sharded, grid and one-device COO
+     window BAs.  (c) `bench_multihost --procs 2 --dev-per-proc 2` (gloo
+     between two processes, the shards on this card) against
+     `--local-devices --dev-per-proc 4` at the tool's defaults (`--comm
+     dense`): the 2 x 2 solve's translations within 5e-2 and cost within
+     20% of the 1 x 4 solve's (`tests/test_multihost.py`'s bounds); then
+     `graft_entry.dryrun_multichip` at 1, 2, 4 and 8 shards.
 
 Each phase prints one line (phase 3 one per kernel, the floor and the host
 line after it; phase 6 three more before it, phase 7 four more
@@ -248,7 +277,8 @@ total; phase 10 one per part, 10a's stages and read sites after it, and its
 total; phase 11 a line for the first pair, then per part one line and
 one per frame kind, and its total; phase 12 a line for the tree, then per
 arm one line and one per frame kind, and its total; phase 13 one line per
-tool and its total); the kernels' JSON
+tool and its total; phase 14 one per comm mode, one for the engine, three
+for the processes and its total); the kernels' JSON
 line and the card's line precede the last line, `{"ok": true, "device":
 {...}}`.  Any failure raises and exits non-zero before it.
 """
@@ -260,6 +290,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1689,6 +1720,197 @@ def print_tools(tp: dict) -> None:
           f"launches {c['launches']}", flush=True)
 
 
+def distribution_phase(dev) -> dict:
+    """Phase 14: the sharded BA (a), the engine's sharded local BA (b),
+    across processes and the dry run (c); each part with the launch
+    counters set to 0 just before it and read just after.  Raises on a
+    failed gate; returns the phase's numbers."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from orbslam3_tpu_torch import graft_entry
+    from orbslam3_tpu_torch.ops import orb_patches
+    from orbslam3_tpu_torch.parallel import dist_ba, multihost
+    from orbslam3_tpu_torch.pipeline import system
+    from orbslam3_tpu_torch.tools import bench_multihost
+    from orbslam3_tpu_torch.utils import dist_scene, engine_mesh, sync_census
+
+    out = {}
+    bad = []
+    iters, pcg = 4, 32
+    modes = ("matvec", "dense", "camshard")
+    # the collectives per LM iteration that JAX's docstring counts, and the
+    # port's own count of the same scheme
+    jax_count = {"matvec": 3 + pcg, "dense": 2, "camshard": None}
+    port_count = {"matvec": pcg + 6, "dense": 2, "camshard": 4 + 4 * pcg}
+
+    # (a) the solver at bench_multihost's per-shard width on 8 local shards
+    orb_patches.reset_counters()
+    prob_c, (_, t_gt, X_gt) = dist_scene.problem()
+    cam = torch.tensor(dist_scene.K4, device=dev)
+    dprob = dist_ba.partition_problem(dist_scene.problem(device=dev)[0], 8)
+    dprob_c = dist_ba.partition_problem(prob_c, 8)
+
+    def solve(comm, mesh, p=dprob, c=cam):
+        return dist_ba.dist_bundle_adjust(p, mesh, cam_params=c, iterations=iters,
+                                          pcg_iters=pcg, comm=comm)
+
+    res = {}
+    for comm in modes:
+        mesh = multihost.Mesh(8)
+        solve(comm, mesh)                                  # warm-up
+        torch.cuda.synchronize()
+        mesh.n_collectives = 0
+        found = []
+        with sync_census._sync_warnings(found):
+            (R, t, X, cost), ms = _timed_events(lambda: solve(comm, mesh))
+        coll = (mesh.n_collectives - 1) / iters            # the points' gather is outside
+        Rc, tc, Xc, cc = solve(comm, multihost.Mesh(8), dprob_c, cam.cpu())
+        t_err = float((t.cpu() - t_gt).norm(dim=1).max())
+        x_err = float((X.cpu() - X_gt).norm(dim=1).mean())
+        cpu = max(float((t.cpu() - tc).abs().max()), float((R.cpu() - Rc).abs().max()),
+                  float((X.cpu() - Xc).abs().max()))
+        again = solve(comm, multihost.Mesh(8))
+        same = all(torch.equal(a, b) for a, b in zip((R, t, X, cost), again))
+        res[comm] = (R, t, X, cost)
+        out[comm] = dict(ms_per_iter=ms / iters, t_err=t_err, x_err=x_err, cpu=cpu, cost=float(cost),
+                         collectives=coll, reads=len(found), sites=collections.Counter(found),
+                         repeat_equal=same)
+        if not (t_err < 5e-3 and x_err < 5e-3):
+            bad.append(f"{comm}: translations {t_err}, points {x_err} from the truth")
+        if not cpu < 1e-4:
+            bad.append(f"{comm}: the card {cpu} from the CPU")
+        if coll != port_count[comm]:
+            bad.append(f"{comm}: {coll} collectives per LM iteration, not {port_count[comm]}")
+        if not same:
+            bad.append(f"{comm}: a second solve differs from the first")
+    for comm in ("dense", "camshard"):
+        d = float((res[comm][1] - res["matvec"][1]).abs().max())
+        out[comm]["vs_matvec"] = d
+        if not d < 2e-3:
+            bad.append(f"{comm}: {d} from matvec's translations")
+    # the same solves under a process group of NCCL at world size 1, NCCL's
+    # only form on one card: they must equal the runs without a group
+    rdv = tempfile.mkdtemp(prefix="slam_pg_")
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method="file://" + os.path.join(rdv, "store"),
+                            world_size=1, rank=0)
+    try:
+        for comm in modes:
+            mesh = multihost.global_mesh(local=8)
+            got = solve(comm, mesh)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, res[comm]))
+            out[comm]["nccl_equal"] = same
+            if mesh.world != 1 or mesh.group is None or not same:
+                bad.append(f"{comm} under NCCL at world size 1: equal {same}")
+        out["nccl_backend"] = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rdv, ignore_errors=True)
+    launches = {"dist_ba": orb_patches.launch_counts()}
+
+    # (b) the engine: test_engine_mesh's scene sharded and on one device
+    orb_patches.reset_counters()
+    t0 = time.perf_counter()
+    local = []
+    with engine_mesh.local_ba_as(_events(local, system.local_ba)):
+        sharded = engine_mesh.run(engine_mesh.config(ba_mesh_shards=8), dev)
+    one = engine_mesh.run(engine_mesh.config(), dev, coo=True)
+    launches["engine_mesh"] = orb_patches.launch_counts()
+    bad += [f"engine: {b}" for b in engine_mesh.gates(one, sharded)]
+    s8 = sharded[0]
+    for name, tensor in (("map", s8.map.pt_xyz), ("bank", s8.bank.xy)):
+        if tensor.device.type != "cuda":
+            bad.append(f"engine: the {name} is on {tensor.device}")
+    # the sharded window BA beside the grid and the one-device COO ones, on
+    # the sharded run's last map
+    m, bank, ki, cam8 = s8.map, s8.bank, s8.last_kf_idx, s8.cam_params
+    grid_cfg = engine_mesh.config()
+    ba_ms = {"sharded": _event_ms(lambda: system.local_ba(s8.cfg, cam8, m, ki, bank), runs=5),
+             "grid": _event_ms(lambda: system.local_ba(grid_cfg, cam8, m, ki, bank), runs=5),
+             "coo": _event_ms(lambda: engine_mesh.coo_local_ba(grid_cfg, cam8, m, ki, bank),
+                              runs=5)}
+    out["engine"] = dict(ate_sharded=sharded[1], ate_one=one[1],
+                         apart=engine_mesh.apart(one, sharded), n_kf=s8.n_kf_host,
+                         n_pt=int(s8.map.pt_valid.sum()), resets=(one[0].n_resets, s8.n_resets),
+                         n_local_ba=len(local), local_ms=statistics.median(_ms(local)),
+                         ba_ms=ba_ms, s=time.perf_counter() - t0)
+
+    # (c) across processes (gloo between two processes, the shards on this
+    # card) against one process of 4 shards; the dry run at 1-8 shards
+    orb_patches.reset_counters()
+    t0 = time.perf_counter()
+    where = ["--device", dev.type, "--comm", "dense"]
+    two = bench_multihost.main(["--procs", "2", "--dev-per-proc", "2"] + where)
+    four = bench_multihost.main(["--local-devices", "--dev-per-proc", "4"] + where)
+    a, b = two["detail"][2], four["detail"][4]
+    dt = float(np.abs(np.asarray(a["t"]) - np.asarray(b["t"])).max())
+    dc = abs(a["cost"] - b["cost"]) / max(b["cost"], 1.0)
+    if not (a["n_shards"] == b["n_shards"] == 4 and dt < 5e-2 and dc < 0.2):
+        bad.append(f"2 x 2 processes against 1 x 4: translations {dt}, cost {dc} relative")
+    if a["backend"] != "gloo" or not a["device"].startswith(dev.type):
+        bad.append(f"2 x 2: backend {a['backend']} on {a['device']}")
+    for n in (1, 2, 4, 8):
+        graft_entry.dryrun_multichip(n, dev)
+    launches["multiprocess"] = orb_patches.launch_counts()
+    out["multiprocess"] = dict(two=two, four=four, dt=dt, dc=dc, s=time.perf_counter() - t0)
+    for k, v in launches.items():
+        if v != orb_patches.path_counts(0):
+            bad.append(f"launches of {k}: {v}, none expected (no frame is extracted)")
+    out["launches"] = launches
+    if bad:
+        _fail("distribution: " + "; ".join(bad))
+    out["jax_count"], out["port_count"] = jax_count, port_count
+    return out
+
+
+def _timed_events(fn):
+    """(fn(), CUDA-event ms around it)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    r = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return r, start.elapsed_time(end)
+
+
+def print_distribution(dp: dict) -> None:
+    for comm in ("matvec", "dense", "camshard"):
+        d = dp[comm]
+        vs = f", {d['vs_matvec']:.3g} from matvec's translations" if "vs_matvec" in d else ""
+        print(f"distribution {comm}: 8 shards on the card, 32 cameras / 16384 points / 65536 "
+              f"observations, 4 LM steps: {d['ms_per_iter']:.3f} ms per LM iteration (CUDA "
+              f"events); translations {d['t_err']:.3g} and points {d['x_err']:.3g} from the "
+              f"truth{vs}; the CPU's solve {d['cpu']:.3g} away; a second solve bit-equal "
+              f"{d['repeat_equal']}, under NCCL at world size 1 bit-equal {d['nccl_equal']}; "
+              f"{d['collectives']:g} collectives per LM iteration (JAX's docstring: "
+              f"{dp['jax_count'][comm]}); {d['reads']} blocking reads per solve "
+              f"{dict(d['sites'])}", flush=True)
+    e = dp["engine"]
+    print(f"distribution engine: ATE sharded {e['ate_sharded']:.5g}, one device (COO) "
+          f"{e['ate_one']:.5g}, {e['apart']:.5g} apart; {e['n_kf']} keyframes, {e['n_pt']} "
+          f"points, resets {e['resets']}; {e['n_local_ba']} sharded window BAs, median "
+          f"{e['local_ms']:.1f} ms (events); on the last map: sharded "
+          f"{e['ba_ms']['sharded']:.1f} ms, grid {e['ba_ms']['grid']:.1f} ms, one-device COO "
+          f"{e['ba_ms']['coo']:.1f} ms; {e['s']:.1f} s", flush=True)
+    mp = dp["multiprocess"]
+    for name, line in (("2 processes x 2 shards (gloo)", mp["two"]),
+                       ("1 process, 1 against 4 shards", mp["four"])):
+        shown = {k: v for k, v in line.items() if k != "detail"}
+        per = {n: {k: d[k] for k in ("n_processes", "n_shards", "ms_per_lm_iter", "backend",
+                                     "collectives_per_lm_iter", "cost")}
+               for n, d in line["detail"].items()}
+        print(f"distribution {name}: {json.dumps(shown)} {json.dumps(per)}", flush=True)
+    print(f"distribution across processes: 2 x 2 against 1 x 4 translations {mp['dt']:.3g}, "
+          f"cost {mp['dc']:.3g} relative; dryrun_multichip at 1, 2, 4, 8 shards finite; "
+          f"{mp['s']:.1f} s", flush=True)
+
+
 def patch_kernel_work(sel, angle) -> dict:
     """Per kernel, the bytes and operations that these keypoints need: the
     distinct pixels the windows touch (each read once), the keypoints, the
@@ -2080,6 +2302,12 @@ def main() -> int:
     print_tools(tp)
     print(f"tools: phase {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 14. distribution ------------------------------------------------------
+    t0 = time.perf_counter()
+    dp = distribution_phase(dev)
+    print_distribution(dp)
+    print(f"distribution: phase {time.perf_counter() - t0:.1f} s", flush=True)
+
     # report ----------------------------------------------------------------
     src = "orbslam3_tpu_torch/csrc/orb_patches.cu"
     replaces = {"ic_moments": "orbslam3_tpu/ops/pallas_patches.py:58",
@@ -2102,7 +2330,8 @@ def main() -> int:
                                **{"euroc_" + m.replace("-", "_"): ep[m]["launches"][k]
                                   for m, *_ in EUROC_ARMS},
                                **{p: tp[p]["launches"][k] for p in
-                                  ("extract_bench", "train_vocab", "recall_curve")}},
+                                  ("extract_bench", "train_vocab", "recall_curve")},
+                               **{p: n[k] for p, n in dp["launches"].items()}},
          "max_abs_err": err[k], "ms": ev_ms[k], "plain_ms": plain_ms[k],
          "bound_ms": work[k]["bound_ms"], "bound_by": work[k]["bound_by"],
          "library_ms": None, "device_ms": dev_ms[k], "bytes": work[k]["bytes"],

@@ -51,6 +51,9 @@ class OrbParams:
     def scale_factors(self) -> np.ndarray:
         return self.scale_factor ** np.arange(self.n_levels, dtype=np.float32)
 
+    def level_sigma2(self) -> np.ndarray:
+        return self.scale_factors() ** 2
+
 
 class FeatureFrame(NamedTuple):
     """Fixed-capacity SoA keypoint set for one image."""

@@ -109,6 +109,17 @@ def right_jacobian_so3(w: torch.Tensor) -> torch.Tensor:
     return _eye_like(W) - c1 * W + c2 * (W @ W)
 
 
+def inv_right_jacobian_so3(w: torch.Tensor) -> torch.Tensor:
+    """Inverse right Jacobian Jr^{-1}(w)."""
+    x2 = torch.sum(w * w, dim=-1)[..., None, None]
+    W = hat(w)
+    x = torch.sqrt(x2 + _EPS * (x2 < _EPS))
+    cot_term = torch.where(
+        x2 < 1e-8, 1.0 / 12.0 + x2 / 720.0,
+        (1.0 / (x2 + _EPS)) - (1.0 + torch.cos(x)) / (2.0 * x * torch.sin(x) + _EPS))
+    return _eye_like(W) + 0.5 * W + cot_term * (W @ W)
+
+
 def left_jacobian_so3(w: torch.Tensor) -> torch.Tensor:
     """Left Jacobian Jl(w) = Jr(-w)."""
     return right_jacobian_so3(-w)
@@ -143,6 +154,17 @@ def normalize_rotation_svd(R: torch.Tensor) -> torch.Tensor:
     return (U * D[..., None, :]) @ Vh
 
 
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """(..., 4) wxyz quaternion, normalized first -> (..., 3, 3)."""
+    q = q / (torch.linalg.norm(q, dim=-1, keepdim=True) + _EPS)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+    ], dim=-2)
+
+
 def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
     """Shepperd conversion by selects, (..., 3, 3) -> (..., 4) wxyz; the
     largest of the four pivots is taken, the first on ties."""
@@ -165,6 +187,13 @@ def se3_exp(xi: torch.Tensor):
     """se(3) -> SE(3).  xi = [rho (trans), phi (rot)], shape (..., 6)."""
     rho, phi = xi[..., :3], xi[..., 3:]
     return exp_so3(phi), _mv(left_jacobian_so3(phi), rho)
+
+
+def se3_log(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """SE(3) -> se(3) [rho, phi], the inverse of `se3_exp`."""
+    phi = log_so3(R)
+    # Jl^-1(phi) = Jr^-1(phi)^T
+    return torch.cat([_mv(inv_right_jacobian_so3(phi).transpose(-1, -2), t), phi], dim=-1)
 
 
 def se3_inverse(R: torch.Tensor, t: torch.Tensor):

@@ -90,6 +90,17 @@ def angle_from_moments(mom: torch.Tensor) -> torch.Tensor:
     return ang * (180.0 / math.pi)
 
 
+def ic_angle_conv(img: torch.Tensor, xy: torch.Tensor,
+                  half_patch: int = HALF_PATCH_SIZE) -> torch.Tensor:
+    """Dense-moment-map variant: one 2-channel (2r+1)^2 correlation of the
+    whole image, read at the keypoints' integer coordinates (clamped)."""
+    k = _weights_on(half_patch, str(img.device)).permute(2, 0, 1)[:, None]   # (2, 1, s, s)
+    m = torch.nn.functional.conv2d(img[None, None], k, padding=half_patch)[0]
+    xi = torch.clamp(xy[:, 0].to(torch.int32), 0, img.shape[1] - 1).long()
+    yi = torch.clamp(xy[:, 1].to(torch.int32), 0, img.shape[0] - 1).long()
+    return angle_from_moments(m[:, yi, xi].T)
+
+
 def ic_angle(img: torch.Tensor, xy: torch.Tensor,
              half_patch: int = HALF_PATCH_SIZE) -> torch.Tensor:
     """Orientation in degrees [0, 360) for integer keypoint coords (N, 2)."""

@@ -515,8 +515,8 @@ def _with_priors(prob: ba.BAProblem, cam_sel, prior_pos, prior_w) -> ba.BAProble
 def run_local_ba(m: mapstate.MapState, center_kf, cam_model: str, cam_params,
                  window: int = 8, iterations: int = 10, scale_factor: float = 1.2,
                  n_levels: int = 8, chi2_cull: float = 7.5, stereo_bf: float = 0.0,
-                 mesh=None, prior_pos=None, prior_w=None, pcg_iters: int = 32,
-                 schur_solver: str = "auto", bank=None, **caps):
+                 mesh=None, mesh_axis: str = "shard", prior_pos=None, prior_w=None,
+                 pcg_iters: int = 32, schur_solver: str = "auto", bank=None, **caps):
     """Local BA on a keyframe window (reference LocalBundleAdjustment):
     gather the window, solve, and write the free cameras and the window
     points back.  `caps`: cap_cams, cap_pts, cap_obs and window_mode
@@ -526,18 +526,23 @@ def run_local_ba(m: mapstate.MapState, center_kf, cam_model: str, cam_params,
     grid solver, whose gather is always the covisibility window, as in JAX;
     the others (`schur_solver` "pcg" or "dense") to the COO bundle adjuster,
     gathered from the feature bank when one is given, else from the map's
-    observation list.  `prior_pos` (K, 3) and `prior_w` (K,) are per-keyframe
-    camera-centre priors and their information (0: none), the GNSS BA's
+    observation list.  With `mesh` (`parallel.multihost.Mesh`) the COO
+    problem is partitioned over its shards and solved by
+    `parallel.dist_ba.dist_bundle_adjust` with its defaults, as in JAX: its
+    own PCG steps (`pcg_iters` is not passed) and no stereo rows
+    (`stereo_bf` is not passed, so stereo observations count as monocular).
+    Where JAX partitions the window's points as the gather leaves them, all
+    in the first slots, the port first deals them over the shards, so that
+    no shard overflows and every observation stays in the solve.
+    `prior_pos` (K, 3) and `prior_w` (K,) are per-keyframe camera-centre
+    priors and their information (0: none), the GNSS BA's
     (`System._gnss_keyframe_stage`); a problem with them goes to the COO
     solver.  `chi2_cull` is accepted only for parity with the JAX signature
-    and is not read (unused in JAX too).  The sharded BA (`mesh`, ROADMAP
-    queue 1 item 9) is not ported yet and raises."""
-    if mesh is not None:
-        raise NotImplementedError("the sharded BA over a mesh is queue 1 item 9")
+    and is not read (unused in JAX too)."""
     cap_cams = caps.get("cap_cams", 32)
     window_mode = caps.pop("window_mode", "covis")
     if schur_solver == "auto":
-        schur_solver = "grid" if prior_pos is None and cap_cams <= 32 else "pcg"
+        schur_solver = "grid" if mesh is None and prior_pos is None and cap_cams <= 32 else "pcg"
     if schur_solver == "grid":
         cap_pts = caps.get("cap_pts", 8192)
         if bank is not None:
@@ -560,10 +565,28 @@ def run_local_ba(m: mapstate.MapState, center_kf, cam_model: str, cam_params,
             prob, cam_sel, cam_ok, pt_sel, pt_ok = gather_window_problem(
                 m, center_kf, window, n_levels, scale_factor, window_mode=window_mode,
                 prior_pos=prior_pos, prior_w=prior_w, **caps)
-        res = ba.bundle_adjust(prob, cam_model, cam_params, iterations=iterations,
-                               stereo_bf=stereo_bf, pcg_iters=pcg_iters,
-                               schur_solver=schur_solver)
-        R, t, X = res.R, res.t, res.X
+        if mesh is not None:
+            from ..parallel import dist_ba
+            n = mesh.shape[mesh_axis]
+            # the gather compacts the window's points into the first slots,
+            # so the first shards would own them all and drop what overflows
+            # their observation slots (JAX drops a third of the rows); deal
+            # the slots over the shards instead: slot i -> shard i mod n
+            P_cap = prob.X.shape[0]
+            ar = torch.arange(P_cap, device=prob.X.device)
+            deal = (ar % n) * (P_cap // n) + ar // n
+            back = torch.argsort(deal)
+            dealt = prob._replace(X=prob.X[back], pt_valid=prob.pt_valid[back],
+                                  obs_pt=deal[prob.obs_pt.long()].to(prob.obs_pt.dtype))
+            R, t, X, _ = dist_ba.dist_bundle_adjust(
+                dist_ba.partition_problem(dealt, n), mesh, axis=mesh_axis, cam_model=cam_model,
+                cam_params=cam_params, iterations=iterations)
+            X = X[deal]
+        else:
+            res = ba.bundle_adjust(prob, cam_model, cam_params, iterations=iterations,
+                                   stereo_bf=stereo_bf, pcg_iters=pcg_iters,
+                                   schur_solver=schur_solver)
+            R, t, X = res.R, res.t, res.X
     # scatter back the free cameras and the window points
     K = m.kf_R.shape[0]
     P = m.pt_xyz.shape[0]

@@ -116,8 +116,7 @@ LOST = 4
 @dataclasses.dataclass(frozen=True)
 class SlamConfig:
     """The JAX package's `SlamConfig` (system.py:52-121) with the same
-    fields and defaults.  `System` refuses the flags of parts that are not
-    ported yet (`_check_ported`)."""
+    fields and defaults."""
     cam_model: str = "pinhole"
     cam_params: tuple = (458.654, 457.296, 367.215, 248.375)
     image_hw: tuple = (480, 752)
@@ -140,7 +139,7 @@ class SlamConfig:
     ba_pcg_iters: int = 12
     # window BA capacities: cameras, points, observations
     ba_caps: tuple = (16, 4096, 12288)
-    # > 1: shard the local BA over this many devices (not ported yet)
+    # > 1: shard the local BA over this many shards (`local_ba`)
     ba_mesh_shards: int = 0
     async_mapping: bool = False
     enable_loop_closing: bool = False
@@ -225,15 +224,31 @@ def insert_kf(cfg: SlamConfig, cam, m: mapstate.MapState, bank: fb.FeatureBank,
 def local_ba(cfg: SlamConfig, cam, m: mapstate.MapState, center_kf,
              bank: fb.FeatureBank | None = None) -> mapstate.MapState:
     """The window BA of the keyframe step (grid solver, bank-sourced when a
-    bank is given)."""
-    if cfg.ba_mesh_shards > 1:
-        raise NotImplementedError("the sharded local BA is queue 1 item 9")
+    bank is given).  With `ba_mesh_shards > 1` it runs sharded
+    (`parallel.dist_ba` through `run_local_ba(mesh=)`) over `ba_mesh_shards`
+    shards: all on the map's device, or spread over the processes of the
+    default `torch.distributed` group when one is initialized (its size
+    must divide the shard count).  The point and observation caps are then
+    rounded up to multiples of the shard count, as in JAX
+    (system.py:374-381).  JAX solves on one device when it has fewer
+    devices than shards (system.py:364-369); the port always shards, on
+    the one card if need be."""
     cams, pts, obs = cfg.ba_caps
+    mesh = None
+    if cfg.ba_mesh_shards > 1:
+        from ..parallel import multihost
+        s = cfg.ba_mesh_shards
+        world = torch.distributed.get_world_size() if torch.distributed.is_initialized() else 1
+        if s % world:
+            raise ValueError(f"ba_mesh_shards {s} does not divide over {world} processes")
+        mesh = multihost.global_mesh(local=s // world)
+        pts = -(-pts // s) * s
+        obs = -(-obs // s) * s
     return mapping.run_local_ba(
         m, center_kf, cfg.cam_model, cam, window=cfg.local_ba_window,
         iterations=cfg.local_ba_iters, scale_factor=cfg.orb.scale_factor,
-        n_levels=cfg.orb.n_levels, stereo_bf=cfg.stereo_bf, bank=bank,
-        cap_cams=cams, cap_pts=pts, cap_obs=obs)
+        n_levels=cfg.orb.n_levels, stereo_bf=cfg.stereo_bf, mesh=mesh,
+        pcg_iters=cfg.ba_pcg_iters, bank=bank, cap_cams=cams, cap_pts=pts, cap_obs=obs)
 
 
 def cull(m: mapstate.MapState, frame_id) -> mapstate.MapState:
@@ -442,20 +457,12 @@ def renorm_init(m: mapstate.MapState, kf2) -> mapstate.MapState:
     return m._replace(pt_xyz=m.pt_xyz * s, kf_t=m.kf_t * s)
 
 
-def _check_ported(cfg: SlamConfig) -> None:
-    """Refuse a configuration that asks for a part not ported yet."""
-    if cfg.ba_mesh_shards > 1:
-        raise NotImplementedError(
-            "not ported yet: ba_mesh_shards > 1 (the sharded BA, queue 1 item 9)")
-
-
 class System:
     """Host-side orchestrator.  One instance per SLAM run.  All state
     tensors live on `device`: the first CUDA device unless the caller names
     another (`"cpu"` runs the plain versions of the kernels)."""
 
     def __init__(self, config: SlamConfig, device=None, seed: int = 42):
-        _check_ported(config)
         self.cfg = config
         self.device = torch.device("cuda", 0) if device is None else torch.device(device)
         dev = self.device

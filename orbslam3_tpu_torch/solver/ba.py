@@ -18,15 +18,18 @@ for mono).  Per LM step:
 Fixed cameras carry zeroed Jacobians and identity blocks.
 
 Every scatter that can name one block twice (observations of one camera or
-of one point) accumulates with `index_add_` on flattened indices, as JAX's
-`.at[].add` does; `x[idx] += v` would keep one write per index.  Dense
-inverses use `inv_ex`, which reads no status back.  `mapping.run_local_ba`
-gathers the problems; the grid solver (`solver/ba_grid.py`) and the
-visual-inertial BA (`solver/vi_ba.py`) share the closed-form 3x3 blocks.
+of one point) sums its rows per destination (`_seg_sum`: `index_add_` on
+the CPU, a sort and `segment_reduce` on a card, so that a card's run
+repeats bit for bit), as JAX's `.at[].add` does; `x[idx] += v` would keep
+one write per index.  Dense inverses use `inv_ex`, which reads no status
+back.  `mapping.run_local_ba` gathers the problems; the grid solver
+(`solver/ba_grid.py`) and the visual-inertial BA (`solver/vi_ba.py`) share
+the closed-form 3x3 blocks.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -66,16 +69,38 @@ class BAResult(NamedTuple):
 
 
 def _seg_sum(n: int, idx, vals):
-    """zeros(n, ...).at[idx].add(vals)."""
-    return torch.zeros((n,) + vals.shape[1:], dtype=vals.dtype,
-                       device=vals.device).index_add_(0, idx.long(), vals)
+    """zeros(n, ...).at[idx].add(vals), summed in the same order on every
+    run.  On the CPU `index_add_` adds the rows in order.  On a card its
+    atomics add them in the order the threads arrive, so the float result
+    changes from run to run; there the rows are sorted by destination (a
+    stable sort), each destination's run of each column is reduced by
+    `segment_reduce` (a tree per run, so a run of thousands of padding rows
+    costs no more than a short one), and the counts per destination are
+    integer sums, exact in any order (`utils/seg_sum_bench.py`)."""
+    idx = idx.long()
+    out_shape = (n,) + vals.shape[1:]
+    if not vals.is_cuda:
+        return torch.zeros(out_shape, dtype=vals.dtype, device=vals.device).index_add_(
+            0, idx, vals)
+    w = math.prod(vals.shape[1:])
+    order = torch.argsort(idx.to(torch.int32), stable=True)
+    lengths = torch.zeros(n, dtype=torch.int64, device=idx.device).index_add_(
+        0, idx, torch.ones_like(idx))
+    cols = vals[order].reshape(-1, w).T.reshape(-1)          # column by column
+    s = torch.segment_reduce(cols, "sum", lengths=lengths.repeat(w), unsafe=True)
+    return s.reshape(w, n).T.reshape(out_shape)
 
 
 def _add_blocks(S, ki, kj, X, lo: int = 0):
     """S.at[ki, lo:lo+d, kj, lo:lo+d].add(X) on S (K, D, K, D), X (F, d, d);
-    the rows of repeated (ki, kj) pairs accumulate."""
+    the rows of repeated (ki, kj) pairs accumulate.  On a card each pair's
+    rows are summed by `_seg_sum` first, in a fixed order."""
     K, D = S.shape[0], S.shape[1]
     d = X.shape[-1]
+    if S.is_cuda:
+        blocks = _seg_sum(K * K, ki.long() * K + kj.long(), X).reshape(K, K, d, d)
+        S[:, lo:lo + d, :, lo:lo + d] += blocks.permute(0, 2, 1, 3)
+        return S
     a = torch.arange(lo, lo + d, device=S.device)
     row = ki.long()[:, None] * D + a[None, :]                  # (F, d)
     col = kj.long()[:, None] * D + a[None, :]
@@ -243,12 +268,20 @@ def _back_substitute(Cobs, dx_cam, Hpp_inv, bp, ci, pi, pt_valid):
 
 
 def _solve_schur(Hcc, bc, Hpp, bp, Cobs, obs_cam, obs_pt, lam, cam_fixed, pt_valid,
-                 pcg_iters: int = 32):
+                 pcg_iters: int = 32, reduce=None):
     """One LM step, matrix-free: (dx_cam (K, 6), dx_pt (P, 3)).  S x is
     applied through the per-observation coupling blocks; PCG with the exact
-    block-Jacobi preconditioner (S's diagonal blocks, one segment sum)."""
+    block-Jacobi preconditioner (S's diagonal blocks, one segment sum).
+
+    `reduce(v)` sums per-observation rows v (O, ...) into the cameras' rows
+    (K, ...) at every K-sized contraction: the segment sum over `obs_cam` by
+    default; with points and observations sharded (`parallel/dist_ba.py`)
+    each shard's segment sum, psum'd over the mesh.  Hcc and bc then come in
+    already reduced, and Hpp, bp, Cobs shard-local."""
     K, P = Hcc.shape[0], Hpp.shape[0]
     ci, pi = obs_cam.long(), obs_pt.long()
+    if reduce is None:
+        reduce = lambda v: _seg_sum(K, ci, v)   # noqa: E731
     eye6 = torch.eye(6, dtype=Hcc.dtype, device=Hcc.device)
     Hcc_d = Hcc + lam * eye6
     Hpp_inv = _damped_points(Hpp, lam, pt_valid)
@@ -260,12 +293,12 @@ def _solve_schur(Hcc, bc, Hpp, bp, Cobs, obs_cam, obs_pt, lam, cam_fixed, pt_val
         xm = x * free[:, None]
         u = torch.einsum("nij,ni->nj", Cobs, xm[ci])
         v = torch.einsum("nil,nl->ni", CW, _seg_sum(P, pi, u)[pi])
-        y = torch.einsum("kij,kj->ki", Hcc_d, xm) - _seg_sum(K, ci, v)
+        y = torch.einsum("kij,kj->ki", Hcc_d, xm) - reduce(v)
         return y * free[:, None] + x * (1 - free)[:, None]
 
     rv = torch.einsum("nil,nl->ni", CW, bp[pi])
-    rhs = (bc - _seg_sum(K, ci, rv)) * free[:, None]
-    Dm = Hcc_d - _seg_sum(K, ci, torch.einsum("nil,nml->nim", CW, Cobs))
+    rhs = (bc - reduce(rv)) * free[:, None]
+    Dm = Hcc_d - reduce(torch.einsum("nil,nml->nim", CW, Cobs))
     Dm = Dm * free[:, None, None] + eye6 * (1 - free)[:, None, None] + eye6 * 1e-8
     D_inv = torch.linalg.inv_ex(Dm).inverse
     dx_cam = _pcg(matvec, lambda r: torch.einsum("kij,kj->ki", D_inv, r), rhs, pcg_iters)

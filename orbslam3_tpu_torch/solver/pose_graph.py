@@ -16,8 +16,9 @@ into the (7K, 7K) normal matrix, which equals JAX's J^T J of the
 graph-wide `jax.jacfwd` (K = 256: 5,607 x 1,792 in float32, which the
 blocks never materialize), and solves it with `linalg.solve_ex`;
 `solver="cg"` applies it matrix-free with a block-Jacobi preconditioner.
-Every block scatter accumulates with `index_add_` (T14: edges share
-vertices); no solve reads a status back.  The Jacobians at zero rotation
+Every block scatter accumulates through `ba._seg_sum` / `ba._add_blocks`
+(T14: edges share vertices; in a fixed order on a card); no solve reads a
+status back.  The Jacobians at zero rotation
 go through `lie.log_so3`'s guarded form (T9).
 """
 

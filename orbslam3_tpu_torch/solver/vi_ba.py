@@ -20,9 +20,9 @@ coupling blocks and per-factor pair blocks) or assembled densely
 G G^T from the Cholesky-split coupling, the pair blocks scattered in).
 
 Every scatter that can name one block twice (observations of one camera,
-consecutive factors sharing a keyframe) accumulates with `index_add_`,
-as JAX's `.at[].add` does; a plain `x[idx] += v` would keep one write per
-index.  The dense reduced system is a float32 product, kept out of TF32 by
+consecutive factors sharing a keyframe) accumulates through
+`ba._seg_sum` / `ba._add_blocks` (in a fixed order on a card), as JAX's
+`.at[].add` does; a plain `x[idx] += v` would keep one write per index.  The dense reduced system is a float32 product, kept out of TF32 by
 the package's precision policy.
 
 Body/camera convention: body pose (Rwb, pwb); the extrinsic Tcb (camera <-

@@ -7,8 +7,10 @@ map merge and the GNSS BA on the card against the CPU; a stereo pair through
 `track_stereo` on the card against the CPU, `orb_describe`'s launches per
 stereo frame, `fisheye_stereo_match` on the card against the CPU, the
 sequence runner's mono arm on the card, the extraction bench on the card
-against the CPU's extraction, and the recall curve's rows on the card against
-the CPU's from the same descriptors.
+against the CPU's extraction, the recall curve's rows on the card against
+the CPU's from the same descriptors, the sharded BA on the card against the
+CPU in each comm mode, and the System with its window BA sharded over 8
+shards of the card.
 
 These need an NVIDIA GPU with nvcc and are marked `gpu`; without a card they
 skip.  With a GPU: `python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest`
@@ -766,3 +768,38 @@ def test_recall_rows_on_the_card_match_the_cpu(dev):
     ref = rc.recall_rows(desc, (4096,), (2, 4), "cpu", echo=False)
     assert [r[:4] for r in got] == [r[:4] for r in ref]
     np.testing.assert_allclose([r[4] for r in got], [r[4] for r in ref], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("comm", ["matvec", "dense", "camshard"])
+def test_dist_ba_on_the_card_matches_the_cpu(dev, comm):
+    """8 local shards of the card against the same solve on the CPU: R, t
+    and X within 1e-4, both at the truth within 5e-3; a second solve on the
+    card bit-equal to the first (the sums are deterministic)."""
+    from orbslam3_tpu_torch.parallel import dist_ba, multihost
+    from orbslam3_tpu_torch.utils import dist_scene
+
+    prob, (_, t_gt, X_gt) = dist_scene.problem(8, 2048, 8192)
+    cam = torch.tensor(dist_scene.K4)
+
+    def solve(device):
+        p = dist_ba.partition_problem(type(prob)(*(x.to(device) for x in prob if x is not None)), 8)
+        return dist_ba.dist_bundle_adjust(p, multihost.Mesh(8), cam_params=cam.to(device),
+                                          iterations=4, comm=comm)
+
+    got, again, ref = solve(dev), solve(dev), solve("cpu")
+    for g, r in zip(got[:3], ref[:3]):
+        assert float((g.cpu() - r).abs().max()) < 1e-4
+    assert float((got[1].cpu() - t_gt).norm(dim=1).max()) < 5e-3
+    assert float((got[2].cpu() - X_gt).norm(dim=1).mean()) < 5e-3
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_system_with_its_window_ba_sharded_on_the_card(dev):
+    """test_engine_mesh's scene with ba_mesh_shards=8 on the card and on
+    one device through the COO solver: JAX's gates."""
+    from orbslam3_tpu_torch.utils import engine_mesh
+
+    sharded = engine_mesh.run(engine_mesh.config(ba_mesh_shards=8), dev)
+    one = engine_mesh.run(engine_mesh.config(), dev, coo=True)
+    assert not engine_mesh.gates(one, sharded)
+    assert sharded[0].map.pt_xyz.device.type == "cuda"

@@ -22,6 +22,7 @@ from orbslam3_tpu.ops import lie as jlie
 from orbslam3_tpu.ops import matching as jmatch
 from orbslam3_tpu.ops import smallsolve as jsolve
 from orbslam3_tpu.ops import triangulate as jtri
+from orbslam3_tpu.parallel import dist_ba as jdist
 from orbslam3_tpu.pipeline import fusion as jfusion
 from orbslam3_tpu.pipeline import mapping as jmapping
 from orbslam3_tpu.slam_map import feature_bank as jbank
@@ -32,6 +33,7 @@ from orbslam3_tpu_torch.ops import cameras as tcam
 from orbslam3_tpu_torch.ops import matching as tmatch
 from orbslam3_tpu_torch.ops import smallsolve as tsolve
 from orbslam3_tpu_torch.ops import triangulate as ttri
+from orbslam3_tpu_torch.parallel import multihost
 from orbslam3_tpu_torch.pipeline import fusion as tfusion
 from orbslam3_tpu_torch.pipeline import mapping as tmapping
 from orbslam3_tpu_torch.slam_map import convert
@@ -396,9 +398,24 @@ def test_run_local_ba_matches_jax(kf_map):
     _close(got.pt_xyz, ref.pt_xyz, 1e-3 * 8)
     assert np.abs(np.asarray(ref.kf_t) - np.asarray(mj.kf_t)).max() > 1e-3   # it moved
     _fields_equal(got, ref, skip=("kf_R", "kf_t", "pt_xyz"))
-    # the sharded BA is not ported yet
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tmapping.run_local_ba(mt, 5, "pinhole", _t(K4), mesh=object())
+    # over a mesh of 8 shards the window goes to the COO gather and the
+    # sharded solver in both (JAX on its 8 virtual devices, the port's 8
+    # local shards): the same tolerances.  With 2048 observation slots no
+    # shard of JAX's overflows, so both solve every observation (the port
+    # deals the points over the shards first; test_torch_engine_mesh.py has
+    # the case where JAX's shards overflow)
+    jmesh = jax.sharding.Mesh(np.array(jax.devices()[:8]), ("shard",))
+    jprob = jmapping.gather_window_problem_bank(mj, bj, jnp.asarray(5), 8, 4, 1.2, cap_cams=8,
+                                                cap_pts=256, cap_obs=2048)[0]
+    assert int(jdist.partition_problem(jprob, 8).obs_valid.sum()) == int(jprob.obs_valid.sum())
+    ref = jmapping.run_local_ba(mj, jnp.asarray(5), "pinhole", K4, bank=bj, mesh=jmesh,
+                                cap_obs=2048, **kw)
+    got = tmapping.run_local_ba(mt, 5, "pinhole", _t(K4), bank=bt, mesh=multihost.Mesh(8),
+                                cap_obs=2048, **kw)
+    _close(got.kf_R, ref.kf_R, 1e-4)
+    _close(got.kf_t, ref.kf_t, 1e-4)
+    _close(got.pt_xyz, ref.pt_xyz, 1e-3 * 8)
+    assert np.abs(np.asarray(ref.kf_t) - np.asarray(mj.kf_t)).max() > 1e-3   # it moved
     # position priors route the window to the COO solver, as in JAX: the
     # same poses within 1e-4 and points within 1e-3 of their scale
     K = mj.kf_R.shape[0]

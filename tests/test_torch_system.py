@@ -367,12 +367,6 @@ def test_localization_mode_and_exports():
     assert sys_.state == tsystem.NO_IMAGES_YET and sys_.n_resets == 1
 
 
-@pytest.mark.parametrize("flag", [dict(ba_mesh_shards=2)])
-def test_flags_of_parts_not_ported_are_refused(flag):
-    with pytest.raises(NotImplementedError, match="queue 1 item"):
-        tsystem.System(tsystem.SlamConfig(**flag), device="cpu")
-
-
 def test_async_mapping_and_loop_closing_build_a_system():
     """Both flags build a System: the LoopCloser with the 65536-word
     database, no pending chain, and on the CPU no side stream (the chain runs
