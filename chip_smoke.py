@@ -8,12 +8,13 @@ track by relocalization, the mono-inertial `System`, loop closing with
 the asynchronous keyframe chain, map merging, GNSS georeferencing, the
 checkpoint, the stereo, RGB-D, stereo-inertial and KB8 fisheye Systems
 (phase 11), the EuRoC / TUM-VI sequence runner (phase 12), the
-extraction bench and vocabulary tools (phase 13) and the sharded BA within
-and across processes (phase 14), at the JAX package's default monocular configuration (480x752 image, 1200 ORB features over 8
-levels, map capacity 256 keyframes / 24576 points / 196608 observations, a
-local view of 8192 points over 12 keyframes; window BA caps 16 / 4096 /
-12288, 6 LM steps over an 8-keyframe window, 4 triangulation neighbours, 768
-new points at most):
+extraction bench and vocabulary tools (phase 13), the sharded BA within
+and across processes (phase 14) and bench.py's three chains (phase 15), at
+the JAX package's default monocular configuration (480x752 image, 1200 ORB
+features over 8 levels, map capacity 256 keyframes / 24576 points / 196608
+observations, a local view of 8192 points over 12 keyframes; window BA caps
+16 / 4096 / 12288, 6 LM steps over an 8-keyframe window, 4 triangulation
+neighbours, 768 new points at most):
 
   1. device: requires CUDA (no CPU fallback) and prints the card's name and
      power limit as nvidia-smi reports them;
@@ -267,6 +268,26 @@ new points at most):
      dense`): the 2 x 2 solve's translations within 5e-2 and cost within
      20% of the 1 x 4 solve's (`tests/test_multihost.py`'s bounds); then
      `graft_entry.dryrun_multichip` at 1, 2, 4 and 8 shards.
+ 15. bench.py's chains through `orbslam3_tpu_torch.bench` (its docstring has
+     the scenes and where they differ from bench.py), each with the launch
+     counters set to 0 just before it and read just after:
+     `bench_tracking_chain` (50 random images against a 64 / 8192 / 65536 map:
+     the first, the map's own image, tracked to a finite pose with more than
+     200 inliers, and every later pose finite where its frame has an inlier:
+     `bench.tracking_faults`), `bench_full_system` (30 warm-up frames through
+     `System.track_monocular`, then 12 settle and 36 timed chain frames with
+     `system.kf_step` every 6th) and `bench_full_inertial` (warmed up until
+     the IMU initializes, then 12 settle and 36 timed chain frames). Gates:
+     the chains' own asserts (the state OK, the IMU initialized, more than 200
+     valid points); every timed tracked frame of the full chain with at least
+     `min_track_inliers` inliers; both full chains' camera centres within
+     phase 6's ATE gate (0.08 of the span, Umeyama with scale) of the scene's
+     ground truth and at least one keyframe inserted; the full chain's first
+     timed frame and its first keyframe step again on the CPU from copies of
+     the same inputs (`bench.recheck_on_cpu`: the pose within 1e-4 and the
+     same inliers, then phase 5's `kf_step_mismatch` gates); `orb_describe`
+     once per extraction (the chain's, its warm-up's and the census pass's
+     over the 12 settle frames that counts the blocking reads per frame kind).
 
 Each phase prints one line (phase 3 one per kernel, the floor and the host
 line after it; phase 6 three more before it, phase 7 four more
@@ -278,7 +299,8 @@ total; phase 11 a line for the first pair, then per part one line and
 one per frame kind, and its total; phase 12 a line for the tree, then per
 arm one line and one per frame kind, and its total; phase 13 one line per
 tool and its total; phase 14 one per comm mode, one for the engine, three
-for the processes and its total); the kernels' JSON
+for the processes and its total; phase 15 one per chain, one for the CPU
+recheck and its total); the kernels' JSON
 line and the card's line precede the last line, `{"ok": true, "device":
 {...}}`.  Any failure raises and exits non-zero before it.
 """
@@ -1911,6 +1933,103 @@ def print_distribution(dp: dict) -> None:
           f"{mp['s']:.1f} s", flush=True)
 
 
+def bench_phase(dev) -> dict:
+    """Phase 15: bench.py's three chains through `orbslam3_tpu_torch.bench`
+    on device `dev`, each with the launch counters set to 0 just before it
+    and read just after (`orb_describe` once per extraction: the chain's,
+    its warm-up's and its census pass's), under the chains' own asserts and
+    the phase's gates; then the full chain's first timed frame and
+    keyframe step again on the CPU.  Raises on a failed check; returns the
+    numbers."""
+    from orbslam3_tpu_torch import bench
+    from orbslam3_tpu_torch.ops import orb_patches
+
+    out: dict = {}
+
+    def run(name, fn, n_extract):
+        orb_patches.reset_counters()
+        t0 = time.perf_counter()
+        res = fn()
+        launches = orb_patches.launch_counts()
+        out[name] = dict(res=res, launches=launches, s=time.perf_counter() - t0)
+        want = n_extract(res)
+        if launches != orb_patches.path_counts(want):
+            _fail(f"bench {name}: launch counters {launches}, {want} extractions")
+        return res
+
+    def ate_gate(name, res):
+        rmse, scale, span = res.info["ate"]
+        if not rmse < 0.08 * span:
+            _fail(f"bench {name}: ATE {rmse:.4g} of a span of {span:.4g}")
+
+    # the tracking chain: the map's image, a warm call, the chain, the census
+    tr = run("tracking", lambda: bench.bench_tracking_chain(dev),
+             lambda r: 2 + bench.TRACK_ITERS + bench.SETTLE)
+    bad = bench.tracking_faults(tr)
+    if bad:
+        _fail("bench tracking: " + "; ".join(bad))
+    # the full chain: 30 warm-up frames, 48 chain frames, the census over 12
+    full = run("full", lambda: bench.bench_full_system(dev),
+               lambda r: bench.FULL_WARMUP + bench.MEASURE + bench.SETTLE)
+    min_inl = bench.slam_config().min_track_inliers
+    weak = [(i, n) for i, *_, n in full.frames if i >= full.info["timed_from"] and n < min_inl]
+    if weak:
+        _fail(f"bench full: timed frames below {min_inl} inliers: {weak}")
+    if full.keyframes < 1:
+        _fail("bench full: no keyframe inserted")
+    ate_gate("full", full)
+    t0 = time.perf_counter()
+    bad, out["recheck"] = bench.recheck_on_cpu(full)
+    out["recheck"]["s"] = time.perf_counter() - t0
+    if bad:
+        _fail("bench full, card against the CPU: " + "; ".join(bad))
+    # the inertial chain: its warm-up, the chain, the census over 12
+    vi = run("inertial", lambda: bench.bench_full_inertial(dev),
+             lambda r: r.info["warmup_frames"] + bench.MEASURE + bench.SETTLE)
+    if vi.keyframes < 1:
+        _fail("bench inertial: no keyframe inserted")
+    ate_gate("inertial", vi)
+    return out
+
+
+def print_bench(bp: dict) -> None:
+    """Phase 15's lines."""
+    import numpy as np
+    from orbslam3_tpu_torch import bench
+    timed = f"{bench.MEASURE - bench.SETTLE} of {bench.MEASURE} frames"
+    for name in ("tracking", "full", "inertial"):
+        b = bp[name]
+        r = b["res"]
+        extra = ""
+        if name == "tracking":
+            n_nan = sum(not np.isfinite(R).all() for _, R, _, _ in r.frames)
+            extra = (f"; the first frame {r.frames[0][3]} inliers; {n_nan} NaN poses (a frame "
+                     f"with no inlier gives one on the CPU, in JAX as in the port)")
+        else:
+            rmse, scale, span = r.info["ate"]
+            inl = [n for i, *_, n in r.frames if i >= r.info["timed_from"]]
+            extra = (f"; initialized at frame {r.info['init_frame']}; {r.info['points']} valid "
+                     f"points; timed inliers {min(inl)}-{max(inl)}; "
+                     f"ATE {rmse:.5g} after alignment with scale {scale:.5g}, "
+                     f"{rmse / span:.4f} of the span {span:.4g}")
+        if name == "inertial":
+            extra += (f"; warm-up {r.info['warmup_frames']} frames, the IMU initialized at "
+                      f"frame {r.info['imu_init_frame']}")
+        reads = ("not measured" if r.reads is None else
+                 ", ".join(f"{k} {v:.2f}" for k, v in r.reads.items()))
+        over = f"{bench.TRACK_ITERS} frames" if name == "tracking" else timed
+        print(f"bench {name}: {r.fps:.3f} fps ({r.ms_per_frame:.2f} ms per frame) over {over}, "
+              f"{r.keyframes} keyframes; blocking reads per frame: {reads}{extra}; "
+              f"{b['s']:.1f} s; launches {b['launches']}", flush=True)
+    c = bp["recheck"]
+    print(f"bench full against the CPU: frame {c['frame']} pose |diff| "
+          f"{c['track_pose']:.3g}, inliers {c['track_inliers'][0]} (CPU "
+          f"{c['track_inliers'][1]}); keyframe step at frame {c['kf_frame']}: {c['n_new']} new "
+          f"points, {c['kf']['relabelled']} in swapped slots, max pose |diff| "
+          f"{c['kf']['pose']:.3g}, max point relative diff {c['kf']['point']:.3g}; "
+          f"{c['s']:.1f} s", flush=True)
+
+
 def patch_kernel_work(sel, angle) -> dict:
     """Per kernel, the bytes and operations that these keypoints need: the
     distinct pixels the windows touch (each read once), the keypoints, the
@@ -2308,6 +2427,12 @@ def main() -> int:
     print_distribution(dp)
     print(f"distribution: phase {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 15. bench.py's chains ---------------------------------------------------
+    t0 = time.perf_counter()
+    bp = bench_phase(dev)
+    print_bench(bp)
+    print(f"bench: phase {time.perf_counter() - t0:.1f} s", flush=True)
+
     # report ----------------------------------------------------------------
     src = "orbslam3_tpu_torch/csrc/orb_patches.cu"
     replaces = {"ic_moments": "orbslam3_tpu/ops/pallas_patches.py:58",
@@ -2331,7 +2456,9 @@ def main() -> int:
                                   for m, *_ in EUROC_ARMS},
                                **{p: tp[p]["launches"][k] for p in
                                   ("extract_bench", "train_vocab", "recall_curve")},
-                               **{p: n[k] for p, n in dp["launches"].items()}},
+                               **{p: n[k] for p, n in dp["launches"].items()},
+                               **{"bench_" + p: bp[p]["launches"][k] for p in
+                                  ("tracking", "full", "inertial")}},
          "max_abs_err": err[k], "ms": ev_ms[k], "plain_ms": plain_ms[k],
          "bound_ms": work[k]["bound_ms"], "bound_by": work[k]["bound_by"],
          "library_ms": None, "device_ms": dev_ms[k], "bytes": work[k]["bytes"],

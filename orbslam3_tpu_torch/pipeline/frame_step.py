@@ -9,7 +9,7 @@ No value is read back to the host.
 
 from __future__ import annotations
 
-from ..features.extractor import OrbParams, extract
+from ..features.extractor import FeatureFrame, OrbParams, extract
 from ..ops import lie
 from ..slam_map.state import MapState, PointView
 from . import tracking
@@ -19,7 +19,13 @@ def track_frame(m: MapState, view: PointView, img, R_prev, t_prev, R_cur, t_cur,
                 p: OrbParams, cam, hw: tuple[int, int], radius_th: float = 4.0):
     """Returns (map with updated counters, FeatureFrame, R_cw, t_cw, kp_pt,
     n_inliers), as `slam_frame` does."""
-    ff = extract(img, p)
+    return track_features(m, view, extract(img, p), R_prev, t_prev, R_cur, t_cur, p, cam, hw,
+                          radius_th)
+
+
+def track_features(m: MapState, view: PointView, ff: FeatureFrame, R_prev, t_prev, R_cur,
+                   t_cur, p: OrbParams, cam, hw: tuple[int, int], radius_th: float = 4.0):
+    """`track_frame` after the extraction, on the frame's features."""
     # constant-velocity guess
     Rpi, tpi = lie.se3_inverse(R_prev, t_prev)
     Rv, tv = lie.se3_compose(R_cur, t_cur, Rpi, tpi)

@@ -6,7 +6,8 @@
 The port of `tools/drives/drive_vi_chain_ablation.py`.  On bench.py's
 inertial scene (`bench_full_inertial`: 480x752 at K4 (400, 400, 376, 240),
 10 frames per second, a 200 Hz IMU, the bob 0.35 sin(1.2 t) from t = 0,
-the texture `block_texture(default_rng(7), block=10)`) the
+the texture `block_texture(default_rng(7), block=10)` and the JAX package's
+default mesas, `synth_render.DEFAULT_MESAS`) the
 `InertialSystem` is warmed up, then three chains run over the same next
 `--measure` frames from the same warmed state, each timed after its 6
 settle frames:
@@ -28,16 +29,14 @@ separate pass over the settle frames.
 
 Where the port differs from JAX:
   * The warm-up.  JAX feeds 80 frames and asserts that the IMU is
-    initialized; on this scene two-view initialization refuses every pair
-    while the camera rises, and the JAX `InertialSystem` on the CPU
-    initializes at frame 74 and its IMU at frame 106 (ROADMAP queue 1, item
-    1), so JAX's assert fails there.  The port warms up for at least 80
-    frames and until the IMU is initialized, at most `--cap` frames
-    (default 200), renders frames as it needs them (the same frames: one
-    generator in frame order) and prints the frame at which the IMU
-    initialized.  If the cap comes first it says so, still times the chains
-    on the visual state (prior: identity information, as JAX's fallback)
-    and exits 1.
+    initialized.  The port warms up for at least 80 frames and until the
+    IMU is initialized (on this scene at frame 78 on the CPU and on the
+    card; on the plane without the mesas only at frame 106), at most
+    `--cap` frames (default 200), renders frames as it needs them (one
+    generator in frame order, as JAX renders them all up front) and prints
+    the frame at which the IMU initialized.  If the cap comes first it says
+    so, still times the chains on the visual state (prior: identity
+    information, as JAX's fallback) and exits 1.
   * Chain B integrates the frame's valid rows only (`preintegrate(n_valid=)`,
     as the port's System does), where JAX scans all 64 masked rows; its line
     names the mean number of rows.
@@ -103,7 +102,8 @@ class Renderer:
         while len(self.frames) <= i:
             t = len(self.frames) / FPS
             R_cw, t_cw = pose(t)
-            img = sr.render_plane(R_cw, t_cw, np.asarray(K4), HW, self.tex, tex_scale=60.0)
+            img = sr.render_plane(R_cw, t_cw, np.asarray(K4), HW, self.tex, tex_scale=60.0,
+                                  mesas=sr.DEFAULT_MESAS)
             img += self.rng.normal(0, 1.5, img.shape).astype(np.float32)
             self.frames.append(np.clip(img, 0, 255).astype(np.uint8))
         return self.frames[i]

@@ -309,11 +309,12 @@ def test_vi_loop_whole_drive_on_the_cpu(capsys):
 
 @pytest.mark.slow
 def test_chain_ablation_whole_drive_on_the_cpu(capsys):
-    """The ablation's scene initializes its IMU after JAX's 80 warm-up
-    frames (the JAX `InertialSystem` on the CPU: frame 106), so the port
-    warms up until it does (ROADMAP queue 3)."""
+    """The port warms up for at least JAX's 80 frames and until the IMU
+    initializes (ROADMAP queue 3): on the plane alone that was frame 106;
+    with bench.py's mesas in the scene, frame 78 on the CPU."""
     rc = drive_vi_chain_ablation.main(["--device", "cpu"])
     out = capsys.readouterr().out
     print(out)
-    imu_frame = int(re.search(r"IMU initialized at frame (\d+)", out).group(1))
-    assert rc == 0 and imu_frame >= drive_vi_chain_ablation.MIN_WARMUP
+    m = re.search(r"warm-up: (\d+) frames .* IMU initialized at frame (\d+)", out)
+    warmup, imu_frame = int(m.group(1)), int(m.group(2))
+    assert rc == 0 and warmup >= drive_vi_chain_ablation.MIN_WARMUP and imu_frame < warmup

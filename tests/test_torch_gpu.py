@@ -9,8 +9,9 @@ stereo frame, `fisheye_stereo_match` on the card against the CPU, the
 sequence runner's mono arm on the card, the extraction bench on the card
 against the CPU's extraction, the recall curve's rows on the card against
 the CPU's from the same descriptors, the sharded BA on the card against the
-CPU in each comm mode, and the System with its window BA sharded over 8
-shards of the card.
+CPU in each comm mode, the System with its window BA sharded over 8
+shards of the card, and the bench's chains (`orbslam3_tpu_torch.bench`) at
+cut sizes on the card against the CPU.
 
 These need an NVIDIA GPU with nvcc and are marked `gpu`; without a card they
 skip.  With a GPU: `python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest`
@@ -803,3 +804,38 @@ def test_system_with_its_window_ba_sharded_on_the_card(dev):
     one = engine_mesh.run(engine_mesh.config(), dev, coo=True)
     assert not engine_mesh.gates(one, sharded)
     assert sharded[0].map.pt_xyz.device.type == "cuda"
+
+
+def test_bench_chains_on_the_card_match_the_cpu(dev):
+    """`orbslam3_tpu_torch.bench` at cut sizes on the card: the tracking chain
+    at 3 frames against the same chain on the CPU (the first frame, which
+    tracks the map's own image, within 1e-4 and 1% of the inliers;
+    `bench.tracking_faults`: the later frames match nothing, and their poses,
+    NaN on the CPU, stay finite on the card); the full chain at 18 frames (6
+    timed, one keyframe step) within phase 6's ATE gate, its first timed frame
+    and keyframe step again on the CPU from the same state
+    (`bench.recheck_on_cpu`), its reads counted per frame kind; `orb_describe`
+    once per extraction."""
+    from orbslam3_tpu_torch import bench
+
+    orb_patches.reset_counters()
+    card = bench.bench_tracking_chain(dev, iters=3)
+    assert orb_patches.launch_counts() == orb_patches.path_counts(1 + 1 + 3 + 3)
+    cpu = bench.bench_tracking_chain("cpu", iters=3)
+    assert bench.tracking_faults(card) == []
+    (_, Rg, tg, ng), (_, Rc, tc, nc) = card.frames[0], cpu.frames[0]
+    assert np.abs(Rg - Rc).max() <= 1e-4 and np.abs(tg - tc).max() <= 1e-4
+    assert abs(ng - nc) <= 0.01 * nc and nc > 200
+    assert set(card.reads) == {"tracked"} and card.reads["tracked"] >= 0
+
+    orb_patches.reset_counters()
+    full = bench.bench_full_system(dev, measure=18)
+    assert orb_patches.launch_counts() == orb_patches.path_counts(
+        bench.FULL_WARMUP + 18 + bench.SETTLE)
+    assert full.keyframes == 1 and full.info["points"] > 200
+    rmse, _, span = full.info["ate"]
+    assert rmse < 0.08 * span
+    assert set(full.reads) == {"tracked", "keyframe"}
+    bad, _ = bench.recheck_on_cpu(full)
+    assert bad == []
+

@@ -16,6 +16,7 @@ import importlib.util
 import os
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +24,8 @@ import torch
 
 from orbslam3_tpu.place import keyframe_db as jkdb
 from orbslam3_tpu.place import vocab as jvocab
+from orbslam3_tpu.utils import synth_render as jsr
+from orbslam3_tpu_torch.features import extractor as tx
 from orbslam3_tpu_torch.ops import orb_patches
 from orbslam3_tpu_torch.tools import train_vocab, vocab_recall_curve
 
@@ -107,6 +110,85 @@ def test_train_vocab_all_stages_at_a_cut_size(capsys):
         np.testing.assert_array_equal(np.load(path), cb)
     finally:
         os.remove(path)
+
+
+def _images_fed(monkeypatch, fn) -> list:
+    """The images that fn() hands the port's `extract`, each extracted at a
+    cut size (64 features, 2 levels)."""
+    imgs = []
+    real = tx.extract
+
+    def spy(img, p):
+        imgs.append(img.numpy().copy())
+        return real(img, tx.OrbParams(n_features=64, n_levels=2))
+
+    monkeypatch.setattr(tx, "extract", spy)
+    fn()
+    monkeypatch.setattr(tx, "extract", real)
+    return imgs
+
+
+def test_train_vocab_renders_the_jax_tools_views(monkeypatch):
+    """The views of `tools/train_vocab.py:45-73`, rendered by the JAX
+    package (its `render_plane` puts the default mesas in the scene): the
+    port's extraction stage gets the same images, bit for bit."""
+    n_views = 3
+    rng = np.random.default_rng(0)
+    K4 = np.asarray([458.654, 457.296, 367.215, 248.375], np.float32)
+    ref = []
+    for i in range(n_views):
+        if i % 12 == 0:
+            tex = jsr.block_texture(rng, block=int(rng.integers(5, 12)))
+        R_cw, t_cw = jsr.look_down_pose(
+            float(rng.uniform(0, 8)), float(rng.uniform(0, 8)),
+            float(rng.uniform(3, 7)), yaw=float(rng.uniform(0, 6.28)),
+            tilt=float(rng.uniform(-0.25, 0.25)))
+        img = jsr.render_plane(R_cw, t_cw, K4, (480, 752), tex)
+        img += rng.normal(0, 2.0, img.shape).astype(np.float32)
+        ref.append(np.clip(img, 0, 255))
+    got = _images_fed(monkeypatch, lambda: train_vocab.extract_descriptors(n_views, 0, "cpu"))
+    assert len(got) == n_views
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_recall_curve_renders_the_jax_tools_places(monkeypatch):
+    """The nominal and stressed views of `tools/vocab_recall_curve.py:45-89`
+    (the default mesas in the scene) at 3 places: the port's
+    `make_descriptors` extracts the same images, bit for bit."""
+    n_places, n_pool = 3, 8
+    rng = np.random.default_rng(11)
+    K4 = np.asarray([458.654, 457.296, 367.215, 248.375], np.float32)
+    hw = (480, 752)
+    pool = []
+    for _ in range(max(n_pool // 4, 1)):
+        pool.append(jsr.block_texture(rng, block=int(rng.integers(6, 11))))
+        pool.append(jsr.voronoi_texture(rng, n_seeds=int(rng.integers(200, 420))))
+        pool.append(jsr.stripe_texture(rng))
+        pool.append(jsr.blob_texture(rng))
+    ref = []
+    for k in range(n_places):
+        tex = pool[k % len(pool)]
+        x, y = float(rng.uniform(0, 14)), float(rng.uniform(0, 14))
+        z = float(rng.uniform(4, 6))
+        yaw = float(rng.uniform(0, 6.28))
+        img = jsr.render_plane(*jsr.look_down_pose(x, y, z, yaw=yaw), K4, hw, tex)
+        ref.append(np.clip(img + rng.normal(0, 1.5, img.shape), 0, 255).astype(np.uint8))
+        img_q = jsr.render_plane(
+            *jsr.look_down_pose(x + float(rng.uniform(-0.2, 0.2)),
+                                y + float(rng.uniform(-0.2, 0.2)),
+                                z * float(rng.uniform(0.97, 1.03)),
+                                yaw=yaw + float(rng.uniform(-0.1, 0.1))),
+            K4, hw, tex)
+        img_q = jsr.photometric_stress(
+            img_q, exposure=float(rng.uniform(0.7, 1.3)),
+            gamma=float(rng.uniform(0.9, 1.12)), vignette=0.3, noise=4.0, rng=rng)
+        ref.append(np.clip(img_q, 0, 255).astype(np.uint8))
+    got = _images_fed(monkeypatch,
+                      lambda: vocab_recall_curve.make_descriptors(n_places, n_pool, "cpu"))
+    assert len(got) == 2 * n_places
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
 
 
 def jax_recall_rows(desc, vocabs, sizes):
@@ -195,3 +277,99 @@ def test_tool_refuses_the_card_without_one(tool, capsys):
     with pytest.raises(SystemExit):
         tool.main([])
     assert "pass --device cpu" in capsys.readouterr().err
+
+
+@pytest.mark.slow
+def test_recall_descriptors_match_the_jax_tool_at_256_places(monkeypatch, capsys):
+    """The recall tables' gap, measured: the JAX tool's `main` (its
+    extraction spied, no vocabulary) and the port's `make_descriptors` at the
+    default 256 places on the CPU, frame by frame.  The images must be equal
+    (the mesas), every level the same keypoints, level-0 angles bit-equal,
+    and the rows from the two descriptor sets equal.  What is left comes from
+    test_torch_extract_levels.py's two causes, and each is checked as such:
+    a frame with level-0 keypoints of other bits must have blurred pixels
+    that round the other way while the two blurs stay within 1e-4 of each
+    other (a few float32 steps at 255: the blur's float order), and above
+    level 0 the angles stay within 0.1 degrees (the resize's, T1); bin
+    flips and other bits at most 2e-4 of the keypoints (measured: 2 flips
+    and 39 keypoints of 400,488, 52 pixels, the blurs 6.1e-5 apart, angles
+    0.068 degrees).
+    Prints the counts before it asserts."""
+    from orbslam3_tpu.features import extractor as jx
+    from orbslam3_tpu.ops import image as jimage
+    from orbslam3_tpu_torch.ops import brief
+    from orbslam3_tpu_torch.ops import image as timage
+
+    for k in ("RECALL_PLACES", "RECALL_SIZES", "RECALL_VOCABS", "RECALL_POOL"):
+        monkeypatch.delenv(k, raising=False)
+    J = _jax_tool("vocab_recall_curve")
+    rec_j, rec_t = [], []
+    real_j, real_t = jx.extract_jit, tx.extract
+
+    def spy_j(img, p):
+        ff = real_j(img, p)
+        g = jax.device_get(ff)
+        rec_j.append((np.asarray(img), g.xy, g.octave, np.asarray(g.angle),
+                      np.asarray(g.desc).view(np.int32), g.valid))
+        return ff
+
+    def spy_t(img, p):
+        ff = real_t(img, p)
+        rec_t.append((img.numpy(), *(x.numpy() for x in (ff.xy, ff.octave, ff.angle, ff.desc,
+                                                           ff.valid))))
+        return ff
+
+    monkeypatch.setattr(jx, "extract_jit", spy_j)
+    J.main(cpu=True, vocabs=())
+    monkeypatch.setattr(tx, "extract", spy_t)
+    desc_t = vocab_recall_curve.make_descriptors(256, 8, "cpu")
+    assert len(rec_j) == len(rec_t) == 512
+    imgs = kps = flips = bits = bits0 = n_kp = 0
+    ang0 = ang = 0.0
+    ties = []      # per frame with level-0 keypoints of other bits: (pixels, max |blur diff|)
+    for (ij, xj, oj, aj, dj, vj), (it, xt, ot, at, dt, vt) in zip(rec_j, rec_t):
+        imgs += not np.array_equal(ij, it)
+        n_kp += int(vj.sum())
+        for lv in range(4):
+            kj = {tuple(xj[i].tolist()): i for i in np.nonzero((oj == lv) & vj)[0]}
+            kt = {tuple(xt[i].tolist()): i for i in np.nonzero((ot == lv) & vt)[0]}
+            kps += len(set(kj) ^ set(kt))
+            common = sorted(set(kj) & set(kt))
+            if not common:
+                continue
+            a, b = np.array([kj[c] for c in common]), np.array([kt[c] for c in common])
+            flip = (brief.angle_bins(torch.from_numpy(aj[a])) !=
+                    brief.angle_bins(torch.from_numpy(at[b]))).numpy()
+            other = int((np.unpackbits((dj[a] ^ dt[b]).view(np.uint8), axis=1).sum(1)[~flip]
+                         > 0).sum())
+            d = np.abs(aj[a] - at[b])
+            d = float(np.minimum(d, 360.0 - d).max())
+            flips, bits = flips + int(flip.sum()), bits + other
+            if lv > 0:
+                ang = max(ang, d)
+                continue
+            ang0 = max(ang0, d)
+            if other:
+                bits0 += other
+                x = ij.astype(np.float32)
+                bj = np.asarray(jimage.gaussian_blur(jnp.asarray(x)))
+                bt = timage.gaussian_blur(torch.from_numpy(x)).numpy()
+                away = np.round(bj) != np.round(bt)
+                ties.append((int(away.sum()), float(np.abs(bj - bt).max())))
+    desc_j = {f"{k}_{f}": np.stack([np.asarray(r[i]) for r in rec_j[j::2]])
+              for j, k in enumerate(("db", "q")) for f, i in (("desc", 4), ("valid", 5))}
+    rows_j, rows_t = (vocab_recall_curve.recall_rows(d, (4096, 32768), (32, 64, 128, 256), "cpu",
+                                                     echo=False) for d in (desc_j, desc_t))
+    gap = max(abs(x - y) for rj, rt in zip(rows_j, rows_t) for x, y in zip(rj[2:4], rt[2:4]))
+    margin = max(abs(rj[4] - rt[4]) for rj, rt in zip(rows_j, rows_t))
+    with capsys.disabled():
+        print(f"\nrecall descriptors, 512 frames, {n_kp} keypoints: {imgs} images differ; "
+              f"{kps} keypoints not in both; {flips} in another angle bin; {bits} with other "
+              f"bits at the same bin ({bits0} on level 0, in {len(ties)} frames whose blurs "
+              f"round {sum(t[0] for t in ties)} pixels the other way, the two blurs within "
+              f"{max((t[1] for t in ties), default=0.0):.3g}); max angle diff on level 0 "
+              f"{ang0:.4g} deg, above it {ang:.4g} deg; recall rows' largest recall gap "
+              f"{gap:.4g}, margin gap {margin:.3g}")
+    assert imgs == 0 and kps == 0 and ang0 == 0.0 and gap == 0.0
+    assert all(n > 0 and apart <= 1e-4 for n, apart in ties)
+    assert ang <= 0.1 and flips + bits <= 2e-4 * n_kp
