@@ -9,7 +9,8 @@ the asynchronous keyframe chain, map merging, GNSS georeferencing, the
 checkpoint, the stereo, RGB-D, stereo-inertial and KB8 fisheye Systems
 (phase 11), the EuRoC / TUM-VI sequence runner (phase 12), the
 extraction bench and vocabulary tools (phase 13), the sharded BA within
-and across processes (phase 14) and bench.py's three chains (phase 15), at
+and across processes (phase 14), bench.py's three chains (phase 15) and the
+JAX suite's end-to-end acceptance scenarios (phase 16), at
 the JAX package's default monocular configuration (480x752 image, 1200 ORB
 features over 8 levels, map capacity 256 keyframes / 24576 points / 196608
 observations, a local view of 8192 points over 12 keyframes; window BA caps
@@ -105,15 +106,16 @@ neighbours, 768 new points at most):
      camera and ORB, `min_init_matches=60`, `min_track_inliers=20`,
      `max_frames_between_kf=6`, the default map capacity; 200 Hz IMU,
      `init_time_s=2.0`, `init_min_kfs=6`, `refine_time_s=5.0`, VIBA2 off)
-     and feeds it bench.py's 128 frames (80 + 48) of `utils/imu_scene` as
-     bench.py's host loop does: the IMU samples through `grab_imu`, the
-     uint8 frame through `track_monocular` (the path's vertical bob ramps in
-     after 1.5 s, see `imu_scene`).  OK on every frame after
-     initialization, no reset; the IMU initialized by frame 80 and VIBA1
-     done by frame 127; more than 200 valid points; the trajectory from the
+     and feeds it the first `INERTIAL_SMOKE_FRAMES` (72) of bench.py's 128
+     frames (80 + 48) of `utils/imu_scene` as bench.py's host loop does:
+     the IMU samples through `grab_imu`, the uint8 frame through
+     `track_monocular` (the path's vertical bob ramps in after 1.5 s, see
+     `imu_scene`).  OK on every frame after initialization, no reset; the
+     IMU initialized by frame 80 and VIBA1 done by frame 71 (at 40 and 64
+     on the card); more than 200 valid points; the trajectory from the
      IMU initialization on, aligned with scale to the ground truth, with
      |s - 1| < 0.12 and RMSE < 0.1 (metric scale); map, bank, view and bias
-     on the card; `orb_describe`'s counter equal to the 128 frames.  Prints
+     on the card; `orb_describe`'s counter equal to the frames fed.  Prints
      the IMU-init frame split into `inertial_only_init`, reintegration and
      FullInertialBA, the VI window BA, medians per frame kind on the host
      clock, and launches and device milliseconds of one profiled frame of
@@ -198,11 +200,12 @@ neighbours, 768 new points at most):
      ATE below 0.005 and the scale within 0.005 of 1 (JAX: 0.0023, 1.0010),
      `orb_describe` 78.  (c) `StereoInertialSystem` on the raw-KB8 drive of
      tests/test_fisheye_direct_stereo.py:137-234 (its world, motion, 200 Hz
-     accelerometer, rig of baseline 0.2 and 70 frames) with the TUM-VI
-     camera (TUM-VI cam0's KB8 at 512x512, `tumvi_mono`'s 1000 features):
-     the test's gates (no reset, OK at the end, the IMU initialized, rigid
-     RMSE < 0.10, |s - 1| < 0.05; the JAX System on the CPU: 0.0111,
-     1.0224), `orb_describe` 2 x 70.  (d) `System` with `tumvi_mono`'s KB8
+     accelerometer and rig of baseline 0.2; its first
+     `FISHEYE_SI_SMOKE_FRAMES` (40) of 70 frames) with the TUM-VI camera
+     (TUM-VI cam0's KB8 at 512x512, `tumvi_mono`'s 1000 features): the
+     test's gates (no reset, OK at the end, the IMU initialized, rigid RMSE
+     < 0.10, |s - 1| < 0.05; the JAX System on the CPU at 70 frames: 0.0111,
+     1.0224), `orb_describe` 2 per frame.  (d) `System` with `tumvi_mono`'s KB8
      camera and bench.py's System settings on fisheye views of bench.py's
      78 frames (`render_fisheye_frames`: supersampled, a field stop at 0.9
      rad) through `track_monocular`: phase 6's gates with initialization by
@@ -288,6 +291,35 @@ neighbours, 768 new points at most):
      same inliers, then phase 5's `kf_step_mismatch` gates); `orb_describe`
      once per extraction (the chain's, its warm-up's and the census pass's
      over the 12 settle frames that counts the blocking reads per frame kind).
+ 16. the JAX suite's end-to-end acceptance scenarios
+     (`orbslam3_tpu_torch/utils/acceptance.py`, whose docstring has the
+     scenes), each through its System's entry points with the launch
+     counters set to 0 just before it and read just after, under the JAX
+     test's own gates: (A) 36 frames of a lateral sweep at 240x376 with
+     `OrbParams(900, 4)` extracted on the card and fed to `System` (no reset,
+     at least 24 OK, OK at the end, ATE below 0.08 of the span), (B) the same
+     under tests/test_photometric_stress.py's drifting exposure, gamma,
+     vignette, blur and noise (at least 22 OK), (C) repeatability >= 0.55,
+     TH_HIGH matching recall >= 0.33 and precision >= 0.75 across view and
+     light, (D) four places of one texture and a revisit ranked by the
+     65,536-word database (the true place first by 1.15x), (E) the same on a
+     Voronoi texture family (1.10x), (F) mono-inertial on synthetic features
+     with 10x EuRoC IMU noise, cut to its IMU initialization and
+     `ACCEPT_F_AFTER_IMU` frames more (no reset, the IMU initialized, over
+     the second half of the trajectory |s - 1| < 0.15 and RMSE < 0.12), (G)
+     stereo-inertial, 100 frames (no reset, OK, the IMU initialized, RMSE
+     without scale < 0.05, |s - 1| < 0.02), (H) the 270-frame ring lap with
+     loop closing (no reset, OK, ATE < 0.04; the loops closed printed), (I)
+     the 60-frame monocular synthetic sequence (OK, no reset, > 80% of the
+     frames posed, ATE < 0.05, >= 5 keyframes, > 300 points).  Per
+     scenario its card check against the CPU: A-E the first image's
+     extraction on the CPU (the same keypoints, or a failure; angle bins,
+     descriptor bits and angles off counted), F-I the first tracked frame
+     again on a CPU copy of the state before it (pose within 1e-4, the same
+     inliers).  `orb_describe` once per image (A, B 36, C 2, D, E 5, F-I
+     0).  Then `orb_describe` against `describe_plain` on B's stressed
+     atlases (frames `STRESSED_FRAMES`): descriptors bit-identical at the
+     kernel's angles, moments bit-equal to `ic_moments`'.
 
 Each phase prints one line (phase 3 one per kernel, the floor and the host
 line after it; phase 6 three more before it, phase 7 four more
@@ -300,7 +332,8 @@ one per frame kind, and its total; phase 12 a line for the tree, then per
 arm one line and one per frame kind, and its total; phase 13 one line per
 tool and its total; phase 14 one per comm mode, one for the engine, three
 for the processes and its total; phase 15 one per chain, one for the CPU
-recheck and its total); the kernels' JSON
+recheck and its total; phase 16 one per scenario, one for the stressed
+atlases and its total); the kernels' JSON
 line and the card's line precede the last line, `{"ok": true, "device":
 {...}}`.  Any failure raises and exits non-zero before it.
 """
@@ -586,6 +619,16 @@ def relocalization_phase(sys_, scfg, dev, revisit=tuple(range(20, 26))) -> dict:
                 n_registered=int(registered.sum()), revisit=revisit, n_blank=scene.N_BLANK)
 
 
+# Phases 8 and 11c, cut for the smoke's time limit: the
+# mono-inertial drive to 72 of bench.py's 128 frames (its IMU initializes at
+# frame 40 and VIBA1 runs at frame 64, on the card as on the CPU, so VIBA1's
+# gate is frame 71), the raw-fisheye stereo-inertial drive to 40 of the
+# test's 70 frames (its IMU initializes and every gate holds at 40 on the
+# CPU: rigid ATE 0.0078, scale 1.0187; `tests/acceptance_numbers.py cut`)
+INERTIAL_SMOKE_FRAMES = 72
+FISHEYE_SI_SMOKE_FRAMES = 40
+
+
 def inertial_phase(dev) -> dict:
     """Phase 8 on device `dev`: the mono-inertial System on
     `imu_scene.InertialScene()`; raises on a failed gate.  Returns the
@@ -597,7 +640,7 @@ def inertial_phase(dev) -> dict:
     from orbslam3_tpu_torch.utils import imu_scene as scene
     from orbslam3_tpu_torch.utils import profile_keyframe
 
-    cfg = scene.InertialScene()
+    cfg = scene.InertialScene(frames=INERTIAL_SMOKE_FRAMES, viba1_by=INERTIAL_SMOKE_FRAMES - 1)
     t0 = time.perf_counter()
     frames = scene.render_frames(cfg)
     render_s = time.perf_counter() - t0
@@ -1401,7 +1444,7 @@ def sensors_phase(scfg, sframes, dev) -> dict:
     right, depth = ss.render_right_frames(scfg), ss.depth_images(scfg)
     fcfg = ss.fisheye_config()
     fish = ss.render_fisheye_frames(scfg, fcfg)
-    si = ss.FisheyeSIScene()
+    si = ss.FisheyeSIScene(frames=FISHEYE_SI_SMOKE_FRAMES)
     si_imgs = si.render()
     out = {"render_s": time.perf_counter() - t0}
     slam, st = ss.stereo_configs(scfg)
@@ -1460,7 +1503,8 @@ def print_sensors(sp: dict) -> None:
     fp = sp["first_pair"]
     labels = {"stereo": "11a stereo (bench.py's 78 frames as rectified pairs, b = 0.110074)",
               "rgbd": "11b RGB-D (the 78 left frames and the plane's depth)",
-              "stereo_inertial": "11c raw-fisheye stereo-inertial (TUM-VI camera, 70 frames)",
+              "stereo_inertial": f"11c raw-fisheye stereo-inertial (TUM-VI camera, "
+                                 f"{FISHEYE_SI_SMOKE_FRAMES} of the test's 70 frames)",
               "kb8_mono": "11d KB8 monocular (TUM-VI camera, bench.py's 78 frames)"}
     print(f"sensors: rendering {sp['render_s']:.1f} s; 11a's first pair on the card and on "
           f"the CPU: the same {fp['n_points']} points, positions within {fp['rel']:.3g} "
@@ -2030,6 +2074,102 @@ def print_bench(bp: dict) -> None:
           f"{c['s']:.1f} s", flush=True)
 
 
+# phase 16: mono-inertial scenario F runs to its IMU initialization and this
+# many frames more (uncut, 120 frames, it runs outside the smoke)
+ACCEPT_F_AFTER_IMU = 12
+# phase 16: B's frames whose atlases hold orb_describe against describe_plain
+# (the darkest and blurred first frame, a middle one, the brightest last)
+STRESSED_FRAMES = (0, 17, 35)
+
+
+def stressed_atlas_check(dev) -> dict:
+    """`orb_describe` against `describe_plain` on the card on B's stressed
+    atlases (240x376, 4 levels; drifting exposure and gamma, vignetting,
+    blur, noise 4): descriptors bit-identical to the plain version's at the
+    kernel's own angles, moments bit-equal to `ic_moments`'; angle bins and
+    descriptor bits off against the plain version's angles counted.  Raises
+    on a failed check."""
+    import torch
+    from orbslam3_tpu_torch.features import extractor
+    from orbslam3_tpu_torch.ops import brief, orb_patches
+    from orbslam3_tpu_torch.utils import acceptance as acc
+    images, _ = acc.sweep_images(True)
+    out = {"keypoints": 0, "bins_off": 0, "bits_off_plain_angles": 0, "max_angle": 0.0}
+    for i in STRESSED_FRAMES:
+        sel = extractor.select_keypoints(torch.from_numpy(images[i]).to(dev), acc.orb_params())
+        atlas, blur, xy = sel.atlas, sel.atlas_blur, sel.xy_atlas
+        ang, desc, mom = orb_patches.orb_describe(atlas, blur, xy, with_moments=True)
+        ang_p, desc_p = orb_patches.describe_plain(atlas, blur, xy)
+        if not torch.equal(mom, orb_patches.ic_moments(atlas, xy)):
+            _fail(f"orb_describe on B's frame {i}: moments differ from ic_moments'")
+        own = int(brief.unpack_bits(desc ^ brief.compute_descriptors(blur, xy, ang)).sum())
+        if own:
+            _fail(f"orb_describe on B's frame {i}: {own} descriptor bits off the plain "
+                  f"version's at the kernel's angles")
+        d = (ang - ang_p).abs()
+        d = torch.minimum(d, 360.0 - d)
+        out["keypoints"] += int(xy.shape[0])
+        out["bins_off"] += int((brief.angle_bins(ang) != brief.angle_bins(ang_p)).sum())
+        out["bits_off_plain_angles"] += int(brief.unpack_bits(desc ^ desc_p).sum())
+        out["max_angle"] = max(out["max_angle"], float(d.max()))
+        out.setdefault("atlas", tuple(atlas.shape))
+    return out
+
+
+def acceptance_phase(dev) -> dict:
+    """Phase 16: the JAX suite's acceptance scenarios A-I through
+    `utils/acceptance.py` on device `dev`, each with the launch counters set
+    to 0 just before it and read just after (`orb_describe` once per image
+    extracted: A, B 36, C 2, D, E 5, F-I 0), under the JAX test's gates and
+    the card's check against the CPU; each scenario's line printed as it
+    ends.  Then `stressed_atlas_check`.  Raises after the last scenario if
+    any gate failed; returns the results."""
+    from orbslam3_tpu_torch.ops import orb_patches
+    from orbslam3_tpu_torch.utils import acceptance as acc
+    out, bad = {}, []
+    for name, run in acc.SCENARIOS.items():
+        kw = {"after_imu": ACCEPT_F_AFTER_IMU} if name == "F" else {}
+        orb_patches.reset_counters()
+        r = run(dev, **kw)
+        r["launches"] = orb_patches.launch_counts()
+        if r["launches"] != orb_patches.path_counts(r["extracts"]):
+            r["bad"].append(f"launch counters {r['launches']} for {r['extracts']} extractions")
+        out[name] = r
+        print_accept(r)
+        bad += [f"accept {name}: {b}" for b in r["bad"]]
+    t0 = time.perf_counter()
+    out["stressed"] = stressed_atlas_check(dev)
+    out["stressed"]["s"] = time.perf_counter() - t0
+    if bad:
+        _fail("; ".join(bad))
+    return out
+
+
+def print_accept(r: dict) -> None:
+    """One scenario's line of phase 16."""
+    def fmt(v):
+        if isinstance(v, float):
+            return f"{v:.5g}"
+        if isinstance(v, list):
+            return "[" + ", ".join(fmt(x) for x in v) + "]"
+        return str(v)
+    gates = ", ".join(f"{k} {fmt(v)}" for k, v in r["gates"].items())
+    kinds = "; ".join(f"{k} {ms:.1f} ms x {n}" for k, (ms, n) in r["kinds"].items())
+    drive = ""
+    if "frames" in r:
+        drive = (f"; frames {r['frames']}, OK {r['ok']}, keyframes {r['keyframes']}, "
+                 f"initialized at frame {r['init_frame']}")
+    if "imu_frame" in r:
+        drive += f", the IMU at frame {r['imu_frame']}, VIBA1 {r['viba1']}"
+    if r.get("last_closure") is not None:
+        drive += f", last closure {r['last_closure']}"
+    check = r.get("card_check") or {}
+    check = ", ".join(f"{k} {fmt(v)}" for k, v in check.items())
+    print(f"accept {r['name']}: {'PASS' if not r['bad'] else 'FAIL ' + '; '.join(r['bad'])}; "
+          f"gates: {gates}{drive}; host ms per frame kind: {kinds}; card against the CPU: "
+          f"{check}; {r['seconds']:.1f} s; launches {r['launches']}", flush=True)
+
+
 def patch_kernel_work(sel, angle) -> dict:
     """Per kernel, the bytes and operations that these keypoints need: the
     distinct pixels the windows touch (each read once), the keypoints, the
@@ -2433,6 +2573,18 @@ def main() -> int:
     print_bench(bp)
     print(f"bench: phase {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 16. the JAX suite's acceptance scenarios --------------------------------
+    t0 = time.perf_counter()
+    xp = acceptance_phase(dev)
+    st = xp["stressed"]
+    print(f"accept stressed atlases: orb_describe on B's frames {list(STRESSED_FRAMES)} "
+          f"(atlas {st['atlas']}), {st['keypoints']} keypoints: moments bit-equal to "
+          f"ic_moments', descriptors bit-identical to the plain version's at the kernel's "
+          f"angles; against the plain version's angles {st['bins_off']} keypoints in another "
+          f"bin, {st['bits_off_plain_angles']} bits off, max angle diff {st['max_angle']:.3g} "
+          f"deg; {st['s']:.1f} s", flush=True)
+    print(f"accept: phase {time.perf_counter() - t0:.1f} s", flush=True)
+
     # report ----------------------------------------------------------------
     src = "orbslam3_tpu_torch/csrc/orb_patches.cu"
     replaces = {"ic_moments": "orbslam3_tpu/ops/pallas_patches.py:58",
@@ -2458,7 +2610,9 @@ def main() -> int:
                                   ("extract_bench", "train_vocab", "recall_curve")},
                                **{p: n[k] for p, n in dp["launches"].items()},
                                **{"bench_" + p: bp[p]["launches"][k] for p in
-                                  ("tracking", "full", "inertial")}},
+                                  ("tracking", "full", "inertial")},
+                               **{"accept_" + p.lower(): xp[p]["launches"][k] for p in
+                                  "ABCDEFGHI"}},
          "max_abs_err": err[k], "ms": ev_ms[k], "plain_ms": plain_ms[k],
          "bound_ms": work[k]["bound_ms"], "bound_by": work[k]["bound_by"],
          "library_ms": None, "device_ms": dev_ms[k], "bytes": work[k]["bytes"],

@@ -332,8 +332,7 @@ def full_frames(n: int) -> list:
     out = []
     for i in range(n):
         R_cw, t_cw = seeded_scene.bench_pose(i)
-        img = sr.render_plane(R_cw, t_cw, np.asarray(K4), HW, tex, tex_scale=60.0,
-                              mesas=sr.DEFAULT_MESAS)
+        img = sr.render_plane(R_cw, t_cw, np.asarray(K4), HW, tex, tex_scale=60.0)
         img += rng.normal(0, 1.5, img.shape).astype(np.float32)
         out.append(np.clip(img, 0, 255).astype(np.uint8))
     return out

@@ -26,8 +26,8 @@ selects between them.
 
 The sample indices are an argument: JAX draws them with its own generator
 (`jax.random.categorical`), which torch cannot reproduce.  Without them they
-are drawn by `torch.multinomial` from the same weights with an explicit
-generator.
+are drawn from the same weights by `ops/sampling.multinomial` with an
+explicit generator, on the generator's device.
 
 Both Gauss-Newton loops use the analytic Jacobian of the residual through
 R exp(w) at w = 0, which is what `jax.jacfwd` evaluates there: with
@@ -68,7 +68,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import cameras, lie
+from ..ops import cameras, lie, sampling
 from ..solver import robust
 
 TOP_K = 8   # hypotheses refined (LO-RANSAC)
@@ -239,8 +239,8 @@ def solve_mlpnp(X: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
     # importance-sample the minimal sets toward low-noise observations
     if idx is None:
         wp = w * inv_sigma2 + 1e-9
-        idx = torch.multinomial(wp, iterations * sample, replacement=True,
-                                generator=generator).reshape(B, iterations, sample)
+        idx = sampling.multinomial(wp, iterations * sample, generator).reshape(
+            B, iterations, sample)
     idx = idx.long()
     ar = torch.arange(B, device=dev)
     Xs, Js = X[ar[:, None, None], idx], J[ar[:, None, None], idx]  # (B, H, S, 3[, 2])

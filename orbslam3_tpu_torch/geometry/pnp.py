@@ -14,7 +14,7 @@ The two sample sets (half the budget of `sample`-point sets, half of lean
 7-point sets) are an argument, as in `geometry/twoview.reconstruct` and
 `geometry/mlpnp.solve_mlpnp`: JAX draws them from a key split in two, and
 torch cannot reproduce that draw.  Without them they come from
-`torch.multinomial` with an explicit generator.
+`ops/sampling.multinomial` with an explicit generator, on its device.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import cameras, lie
+from ..ops import cameras, lie, sampling
 from ..solver import pose_opt
 
 
@@ -91,8 +91,7 @@ def solve_pnp(X: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
     xn = rays[:, :2] / rays[:, 2:3]
     if idx is None:
         w = valid.to(torch.float32) + 1e-9
-        idx = [torch.multinomial(w, sets * pts, replacement=True,
-                                 generator=generator).reshape(sets, pts)
+        idx = [sampling.multinomial(w, sets * pts, generator).reshape(sets, pts)
                for sets, pts in sample_sizes(iterations, sample)]
     poses = [_dlt_p6p(X[i.long()], xn[i.long()]) for i in idx]
     Rs = torch.cat([p[0] for p in poses])

@@ -10,8 +10,9 @@ then the winner is refitted on its inliers.
 The sample indices are an argument: JAX draws them with
 `jax.random.categorical` over the match weights valid + 1e-9 (sim3solver.py:54),
 and JAX's and torch's generators give different draws from one seed.  When
-`idx` is absent they are drawn from the same weights by `torch.multinomial`
-with an explicit generator; the tests inject JAX's draw.
+`idx` is absent they are drawn from the same weights by
+`ops/sampling.multinomial` with an explicit generator, on the generator's
+device; the tests inject JAX's draw.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import align, cameras, lie
+from ..ops import align, cameras, lie, sampling
 from ..slam_map.state import _row
 
 CHI2_1 = 9.210   # reference th2, in both cameras
@@ -39,8 +40,7 @@ def sample_indices(valid: torch.Tensor, iterations: int,
                    generator: torch.Generator | None) -> torch.Tensor:
     """(iterations, 3) sample indices drawn from the weights valid + 1e-9."""
     w = valid.to(torch.float32) + 1e-9
-    return torch.multinomial(w, iterations * 3, replacement=True,
-                             generator=generator).reshape(iterations, 3)
+    return sampling.multinomial(w, iterations * 3, generator).reshape(iterations, 3)
 
 
 def _score(P1, P2, uv1, uv2, valid, R, t, s, cam_model, cam_params):

@@ -29,7 +29,8 @@ Singular vectors are defined up to sign, so F and H here and in the JAX
 package agree up to sign; scores, inlier sets and the set of motion
 hypotheses do not depend on it, and the cheirality count picks the same
 physical motion.  `torch.argmax` keeps the first maximum, as `jnp.argmax`.
-Nothing here reads a value back to the host.
+Nothing here reads a value back to the host but the draw of the samples
+with a CPU generator from a card's matches (`ops/sampling.py`).
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import lie, triangulate
+from ..ops import lie, sampling, triangulate
 from ..slam_map.state import _row, _set_at
 
 RANSAC_ITERS = 200
@@ -252,8 +253,8 @@ def sample_indices(valid: torch.Tensor, generator: torch.Generator | None) -> to
     matches, independently and with replacement as the JAX package's
     categorical draw (twoview.py:247-250)."""
     w = valid.to(torch.float32) + 1e-9
-    return torch.multinomial(w, RANSAC_ITERS * SAMPLE_SIZE, replacement=True,
-                             generator=generator).reshape(RANSAC_ITERS, SAMPLE_SIZE)
+    return sampling.multinomial(w, RANSAC_ITERS * SAMPLE_SIZE, generator).reshape(
+        RANSAC_ITERS, SAMPLE_SIZE)
 
 
 def reconstruct(xy1: torch.Tensor, xy2: torch.Tensor, valid: torch.Tensor,
@@ -264,8 +265,8 @@ def reconstruct(xy1: torch.Tensor, xy2: torch.Tensor, valid: torch.Tensor,
 
     xy1, xy2: (N, 2) matched pixel coords (row i of xy1 matches row i of
     xy2); valid: (N,) mask.  K4 = [fx, fy, cx, cy].  idx: the (200, 8)
-    RANSAC sample indices; None draws them from `generator` (which must
-    live on the tensors' device).
+    RANSAC sample indices; None draws them from `generator` on its own
+    device (`ops/sampling.multinomial`).
     """
     sigma2 = sigma * sigma
     dev = xy1.device

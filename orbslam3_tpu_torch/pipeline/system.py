@@ -470,9 +470,10 @@ class System:
         self.state = NO_IMAGES_YET
         self.map = mapstate.empty_map(config.map_capacity, dev)
         self.frame_id = -1
-        # draws the RANSAC samples of two-view initialization and of
-        # relocalization
-        self.generator = torch.Generator(device=dev)
+        # draws the RANSAC samples of two-view initialization, relocalization,
+        # loop closing and map merging: on the CPU whatever the device, so
+        # that a card makes the CPU's draws (`ops/sampling.py`)
+        self.generator = torch.Generator()
         self.generator.manual_seed(seed)
         # tracker state
         self.R_cur = torch.eye(3, device=dev)

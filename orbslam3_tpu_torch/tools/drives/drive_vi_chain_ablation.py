@@ -102,8 +102,7 @@ class Renderer:
         while len(self.frames) <= i:
             t = len(self.frames) / FPS
             R_cw, t_cw = pose(t)
-            img = sr.render_plane(R_cw, t_cw, np.asarray(K4), HW, self.tex, tex_scale=60.0,
-                                  mesas=sr.DEFAULT_MESAS)
+            img = sr.render_plane(R_cw, t_cw, np.asarray(K4), HW, self.tex, tex_scale=60.0)
             img += self.rng.normal(0, 1.5, img.shape).astype(np.float32)
             self.frames.append(np.clip(img, 0, 255).astype(np.uint8))
         return self.frames[i]

@@ -70,7 +70,7 @@ def extract_descriptors(n_views: int, seed: int, dev):
             float(rng.uniform(0, 8)), float(rng.uniform(0, 8)),
             float(rng.uniform(3, 7)), yaw=float(rng.uniform(0, 6.28)),
             tilt=float(rng.uniform(-0.25, 0.25)))
-        img = sr.render_plane(R_cw, t_cw, K4, HW, tex, mesas=sr.DEFAULT_MESAS)
+        img = sr.render_plane(R_cw, t_cw, K4, HW, tex)
         img += rng.normal(0, 2.0, img.shape).astype(np.float32)
         ff = extract(torch.from_numpy(np.clip(img, 0, 255)).to(dev), p)
         descs.append(ff.desc.cpu().numpy())

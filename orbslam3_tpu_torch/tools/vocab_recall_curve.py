@@ -87,8 +87,7 @@ def make_descriptors(n_places: int, n_pool: int, dev) -> dict:
         x, y = float(rng.uniform(0, 14)), float(rng.uniform(0, 14))
         z = float(rng.uniform(4, 6))
         yaw = float(rng.uniform(0, 6.28))
-        img = sr.render_plane(*sr.look_down_pose(x, y, z, yaw=yaw), K4, HW, tex,
-                              mesas=sr.DEFAULT_MESAS)
+        img = sr.render_plane(*sr.look_down_pose(x, y, z, yaw=yaw), K4, HW, tex)
         d, v = ext(img + rng.normal(0, 1.5, img.shape))
         out["db_desc"].append(d)
         out["db_valid"].append(v)
@@ -98,7 +97,7 @@ def make_descriptors(n_places: int, n_pool: int, dev) -> dict:
                                y + float(rng.uniform(-0.2, 0.2)),
                                z * float(rng.uniform(0.97, 1.03)),
                                yaw=yaw + float(rng.uniform(-0.1, 0.1))),
-            K4, HW, tex, mesas=sr.DEFAULT_MESAS)
+            K4, HW, tex)
         img_q = sr.photometric_stress(
             img_q, exposure=float(rng.uniform(0.7, 1.3)),
             gamma=float(rng.uniform(0.9, 1.12)), vignette=0.3,

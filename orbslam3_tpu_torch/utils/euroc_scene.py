@@ -106,8 +106,7 @@ def write_tree(root: str, n_frames: int = N_FRAMES) -> str:
         ts_ns = int(round(t * 1e9))
         R_cw, t_cw = cam_path(t)
         img = sr.render_plane(R_cw, t_cw, np.asarray(cam["params"]),
-                              cam["resolution"], tex, tex_scale=80.0,
-                              mesas=sr.DEFAULT_MESAS, rays=rays)
+                              cam["resolution"], tex, tex_scale=80.0, rays=rays)
         img = np.clip(img + rng.normal(0, 1.0, img.shape), 0, 255).astype(np.uint8)
         name = f"{ts_ns}.png"
         Image.fromarray(img, "L").save(os.path.join(cam_dir, name))
@@ -117,7 +116,7 @@ def write_tree(root: str, n_frames: int = N_FRAMES) -> str:
         t1_cw = T_c1_c0[:3, :3] @ t_cw + T_c1_c0[:3, 3]
         img1 = sr.render_plane(R1_cw.astype(np.float32), t1_cw.astype(np.float32),
                                np.asarray(cam1["params"]), cam1["resolution"], tex,
-                               tex_scale=80.0, mesas=sr.DEFAULT_MESAS, rays=rays1)
+                               tex_scale=80.0, rays=rays1)
         img1 = np.clip(img1 + rng.normal(0, 1.0, img1.shape), 0, 255).astype(np.uint8)
         Image.fromarray(img1, "L").save(os.path.join(cam1_dir, name))
         # aligned metric depth (undistorted pinhole frame, like the RGB

@@ -117,7 +117,7 @@ def render_frames(cfg: InertialScene) -> list:
     for i in range(cfg.frames):
         R_cw, t_cw = pose(i / FPS)
         img = sr.render_plane(R_cw, t_cw, np.asarray(cfg.K4), cfg.hw, tex,
-                              tex_scale=cfg.tex_scale)
+                              tex_scale=cfg.tex_scale, mesas=())
         img += rng.normal(0, cfg.noise_sigma, img.shape).astype(np.float32)
         out.append(np.clip(img, 0, 255).astype(np.uint8))
     return out

@@ -111,7 +111,7 @@ def render_frames(cfg: SceneConfig) -> dict[int, np.ndarray]:
     for i in sorted(set(cfg.seed_frames) | set(cfg.track_frames)):
         R_cw, t_cw = bench_pose(i)
         img = sr.render_plane(R_cw, t_cw, np.asarray(cfg.K4), cfg.hw, tex,
-                              tex_scale=cfg.tex_scale)
+                              tex_scale=cfg.tex_scale, mesas=())
         img += rng.normal(0, cfg.noise_sigma, img.shape).astype(np.float32)
         frames[i] = np.clip(img, 0, 255).astype(np.uint8)
     return frames
@@ -522,7 +522,7 @@ def render_revisit(cfg: SceneConfig, indices) -> dict[int, np.ndarray]:
     for i in indices:
         R_cw, t_cw = bench_pose(i)
         img = sr.render_plane(R_cw, t_cw, np.asarray(cfg.K4), cfg.hw, tex,
-                              tex_scale=cfg.tex_scale)
+                              tex_scale=cfg.tex_scale, mesas=())
         img += rng.normal(0, cfg.noise_sigma, img.shape).astype(np.float32)
         frames[i] = np.clip(img, 0, 255).astype(np.uint8)
     return frames

@@ -95,7 +95,7 @@ def render_right_frames(cfg: scene.SceneConfig) -> dict[int, np.ndarray]:
     tex = _texture(cfg)
     rng = np.random.default_rng(RIGHT_NOISE_SEED)
     return {i: _noisy(sr.render_plane(*right_pose(i), np.asarray(cfg.K4), cfg.hw, tex,
-                                      tex_scale=cfg.tex_scale), rng, cfg.noise_sigma)
+                                      tex_scale=cfg.tex_scale, mesas=()), rng, cfg.noise_sigma)
             for i in sorted(cfg.track_frames)}
 
 
@@ -152,7 +152,7 @@ def render_fisheye_frames(cfg: scene.SceneConfig, fcfg: system.SlamConfig) -> di
     out = {}
     for i in sorted(cfg.track_frames):
         img = sr.render_plane(*scene.bench_pose(i), np.asarray(p_hi[:4]), (H * s, W * s), tex,
-                              tex_scale=tex_scale, rays=rays)
+                              tex_scale=tex_scale, mesas=(), rays=rays)
         out[i] = _noisy(np.where(inside, img.reshape(H, s, W, s).mean(axis=(1, 3)), 0.0)
                         .astype(np.float32), rng, cfg.noise_sigma)
     return out

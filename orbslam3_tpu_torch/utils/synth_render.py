@@ -6,9 +6,9 @@ not installed.  It renders pinhole or fisheye (`kb8_rays`) views of a
 textured ground plane (z = 0, camera above looking down) by inverse
 mapping: pixel ray -> plane intersection -> bilinear texture sample; four
 texture families, the elevated mesas (`default_mesas`) and a photometric
-stress model (`photometric_stress`).  `render_plane` here defaults to no
-mesas, so depth is the plane's; callers that want mesas pass them
-(`DEFAULT_MESAS` is the JAX package's default set).
+stress model (`photometric_stress`).  `render_plane` draws the JAX
+package's default mesas (`DEFAULT_MESAS`) unless told otherwise, as the JAX
+copy does; a scene whose depth must be the plane's passes `mesas=()`.
 """
 
 from __future__ import annotations
@@ -150,7 +150,7 @@ def kb8_rays(params, hw) -> np.ndarray:
 
 def render_plane(R_cw: np.ndarray, t_cw: np.ndarray, K4, hw,
                  texture: np.ndarray, tex_scale: float = 100.0,
-                 mesas=(), rays: np.ndarray | None = None) -> np.ndarray:
+                 mesas=DEFAULT_MESAS, rays: np.ndarray | None = None) -> np.ndarray:
     """Render one view of the textured z=0 ground plane plus optional
     elevated textured mesas (z<0 rectangles (x0, x1, y0, y1, z)).
 

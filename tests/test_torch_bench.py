@@ -434,7 +434,12 @@ def test_main_at_cut_sizes_prints_bench_py_keys(monkeypatch, capsys):
                  "imu_init_frame"]
     assert list(out) == jax_keys + port_keys
     assert out["metric"] == "mono_tracking_frames_per_second" and out["unit"] == "fps"
-    assert out["value"] > 0 and out["vs_baseline"] == round(out["value"] / 33.0, 3)
+    # vs_baseline is rounded from the unrounded fps, as bench.py:471-473 does:
+    # within half a unit of its last place of that fps / 33 (1e3 /
+    # ms_per_frame; the rounded `value` can sit across a rounding edge)
+    fps = 1e3 / out["ms_per_frame"]["tracking"]
+    assert out["value"] == round(fps, 2) > 0
+    assert abs(out["vs_baseline"] - fps / 33.0) <= 0.0005 + 1e-12
     assert out["full_slam_fps"] > 0 and out["keyframes_inserted"] == 0
     assert out["full_slam_inertial_fps"] is None and out["inertial_keyframes_inserted"] == 0
     assert out["inertial_error"] == "AssertionError: inertial bench failed to track"
@@ -443,6 +448,19 @@ def test_main_at_cut_sizes_prints_bench_py_keys(monkeypatch, capsys):
     assert out["host_reads_per_frame"] == {"tracking": None, "full_slam": None,
                                            "full_slam_inertial": None}
     assert set(orb_patches.launch_counts().values()) == {0}      # CPU: the twins
+
+
+@pytest.mark.parametrize("fps, value, vs", [(0.675, 0.68, 0.02), (15.09, 15.09, 0.457)])
+def test_report_rounds_vs_baseline_from_the_unrounded_fps(fps, value, vs):
+    """bench.py:471-473 rounds fps and fps / 33 each from the unrounded fps.
+    At 0.675 fps the value is 0.68 and vs_baseline 0.02, where rounding the
+    rounded value (0.68 / 33) would give 0.021."""
+    out = bench.report("cpu", _fake(fps), _fake(fps, 6),
+                       _fake(fps, 6, warmup_frames=80, imu_init_frame=78), None)
+    for k, ratio in (("value", "vs_baseline"), ("full_slam_fps", "full_slam_vs_baseline"),
+                     ("full_slam_inertial_fps", "full_slam_inertial_vs_baseline")):
+        assert (out[k], out[ratio]) == (value, vs), k
+        assert out[ratio] == round(fps / 33.0, 3)
 
 
 def test_main_exits_0_with_every_chain_and_1_when_one_raises(monkeypatch, capsys):

@@ -42,7 +42,7 @@ def _t(a):
 def _textured(hw=HW_SMALL, K4=K_SMALL, x=0.0, seed=0):
     tex = tsr.block_texture(np.random.default_rng(3), block=10)
     R, t = tsr.look_down_pose(x, 0.0, 5.0, yaw=0.1)
-    img = tsr.render_plane(R, t, np.asarray(K4), hw, tex, tex_scale=60.0)
+    img = tsr.render_plane(R, t, np.asarray(K4), hw, tex, tex_scale=60.0, mesas=())
     noise = np.random.default_rng(seed).normal(0, 1.5, img.shape)
     return np.clip(img + noise, 0, 255).astype(np.uint8)
 
@@ -278,5 +278,5 @@ def test_synth_render_copy_matches_jax_package():
     np.testing.assert_array_equal(R, Rj)
     np.testing.assert_array_equal(t, tj)
     np.testing.assert_array_equal(
-        tsr.render_plane(R, t, np.asarray(K_SMALL), HW_SMALL, tex, 60.0),
+        tsr.render_plane(R, t, np.asarray(K_SMALL), HW_SMALL, tex, 60.0, mesas=()),
         jsr.render_plane(Rj, tj, np.asarray(K_SMALL), HW_SMALL, tex, 60.0, mesas=()))

@@ -10,8 +10,9 @@ sequence runner's mono arm on the card, the extraction bench on the card
 against the CPU's extraction, the recall curve's rows on the card against
 the CPU's from the same descriptors, the sharded BA on the card against the
 CPU in each comm mode, the System with its window BA sharded over 8
-shards of the card, and the bench's chains (`orbslam3_tpu_torch.bench`) at
-cut sizes on the card against the CPU.
+shards of the card, the bench's chains (`orbslam3_tpu_torch.bench`) at
+cut sizes on the card against the CPU, and a System's RANSAC draws on the
+card equal to the CPU's.
 
 These need an NVIDIA GPU with nvcc and are marked `gpu`; without a card they
 skip.  With a GPU: `python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest`
@@ -839,3 +840,22 @@ def test_bench_chains_on_the_card_match_the_cpu(dev):
     bad, _ = bench.recheck_on_cpu(full)
     assert bad == []
 
+
+
+def test_a_system_draws_the_cpus_samples_on_the_card(dev):
+    """A System keeps a CPU generator (`ops/sampling.py`): on the card and
+    on the CPU the same seed gives the same two-view, MLPnP and Sim3
+    samples, in the same order."""
+    from orbslam3_tpu_torch.geometry import sim3solver, twoview
+    from orbslam3_tpu_torch.ops import sampling
+    cfg = system.SlamConfig(enable_relocalization=False)
+    card, cpu = system.System(cfg, device=dev), system.System(cfg, device="cpu")
+    assert card.generator.device == cpu.generator.device == torch.device("cpu")
+    valid = torch.arange(300) % 3 != 0
+    w = torch.rand(4, 300, generator=torch.Generator().manual_seed(1))
+    for s in (card, cpu):
+        s.draws = [twoview.sample_indices(valid.to(s.device), s.generator),
+                   sampling.multinomial(w.to(s.device), 60, s.generator),
+                   sim3solver.sample_indices(valid.to(s.device), 128, s.generator)]
+    for a, b in zip(card.draws, cpu.draws):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)

@@ -141,7 +141,7 @@ def test_compute_descriptors_exact_bit_equal():
     tex = tsr.block_texture(np.random.default_rng(3), size=512, block=10)
     R_cw, t_cw = tsr.look_down_pose(2.0, 2.0, 3.0, yaw=0.2)
     img = tsr.render_plane(R_cw, t_cw, np.asarray((400.0, 400.0, 188.0, 120.0)), (240, 376),
-                           tex, tex_scale=60.0)
+                           tex, tex_scale=60.0, mesas=())
     blurred = torch.round(image.gaussian_blur(torch.from_numpy(img)))
     rng = np.random.default_rng(4)
     xy = rng.uniform(-4, 380, (700, 2)).astype(np.float32)
