@@ -17,6 +17,7 @@ fixture writes them.
 from __future__ import annotations
 
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -99,37 +100,48 @@ def write_tree(root: str, n_frames: int = N_FRAMES) -> str:
                          np.arange(h, dtype=np.float64))
     rays_ud = np.stack([(uu - cx) / fx, (vv - cy) / fy, np.ones_like(uu)], -1)
 
-    cam_rows = []
-    gt_rows = []
-    for i in range(n_frames):
-        t = i / FPS
-        ts_ns = int(round(t * 1e9))
-        R_cw, t_cw = cam_path(t)
-        img = sr.render_plane(R_cw, t_cw, np.asarray(cam["params"]),
-                              cam["resolution"], tex, tex_scale=80.0, rays=rays)
-        img = np.clip(img + rng.normal(0, 1.0, img.shape), 0, 255).astype(np.uint8)
-        name = f"{ts_ns}.png"
-        Image.fromarray(img, "L").save(os.path.join(cam_dir, name))
-        cam_rows.append(f"{ts_ns},{name}")
+    def render(job):
+        i, right = job
+        R_cw, t_cw = cam_path(i / FPS)
+        if not right:
+            return sr.render_plane(R_cw, t_cw, np.asarray(cam["params"]),
+                                   cam["resolution"], tex, tex_scale=80.0, rays=rays)
         # right camera: the same world plane through T_c1_w = T_c1_c0 T_c0_w
         R1_cw = T_c1_c0[:3, :3] @ R_cw
         t1_cw = T_c1_c0[:3, :3] @ t_cw + T_c1_c0[:3, 3]
-        img1 = sr.render_plane(R1_cw.astype(np.float32), t1_cw.astype(np.float32),
+        return sr.render_plane(R1_cw.astype(np.float32), t1_cw.astype(np.float32),
                                np.asarray(cam1["params"]), cam1["resolution"], tex,
                                tex_scale=80.0, rays=rays1)
-        img1 = np.clip(img1 + rng.normal(0, 1.0, img1.shape), 0, 255).astype(np.uint8)
-        Image.fromarray(img1, "L").save(os.path.join(cam1_dir, name))
+
+    def depth(i):
         # aligned metric depth (undistorted pinhole frame, like the RGB
         # the tool undistorts): ray-plane intersection with z = 0, the
         # mesas left out as the fixture leaves them out
+        R_cw, t_cw = cam_path(i / FPS)
         Rwc = np.asarray(R_cw).T
         twc = -Rwc @ np.asarray(t_cw)
         d_w = rays_ud @ Rwc.T                 # (H, W, 3) world dirs
         s = -twc[2] / np.maximum(d_w[..., 2], 1e-6)
-        depth16 = np.clip(s * 5000.0, 0, 65535).astype(np.uint16)
-        Image.fromarray(depth16).save(os.path.join(depth_dir, name))
-        c = cam_center(t)
-        gt_rows.append(f"{ts_ns},{c[0]},{c[1]},{c[2]},1,0,0,0")
+        return np.clip(s * 5000.0, 0, 65535).astype(np.uint16)
+
+    ts_ns = [int(round(i / FPS * 1e9)) for i in range(n_frames)]
+    # renders, depths and PNG files in threads (numpy and zlib release the
+    # GIL); the noise drawn in the fixture's order, left then right of each
+    # frame
+    with ThreadPoolExecutor(8) as ex:
+        images = list(ex.map(render, [(i, r) for i in range(n_frames) for r in (False, True)]))
+        images = [np.clip(img + rng.normal(0, 1.0, img.shape), 0, 255).astype(np.uint8)
+                  for img in images]
+        files = [(Image.fromarray(img, "L"), (cam_dir, cam1_dir)[k % 2], ts_ns[k // 2])
+                 for k, img in enumerate(images)]
+        files += [(Image.fromarray(d), depth_dir, ns)
+                  for d, ns in zip(ex.map(depth, range(n_frames)), ts_ns)]
+        list(ex.map(lambda f: f[0].save(os.path.join(f[1], f"{f[2]}.png")), files))
+    cam_rows = [f"{ns},{ns}.png" for ns in ts_ns]
+    gt_rows = []
+    for i, ns in enumerate(ts_ns):
+        c = cam_center(i / FPS)
+        gt_rows.append(f"{ns},{c[0]},{c[1]},{c[2]},1,0,0,0")
     header = "#timestamp [ns],filename\n"
     for sub in ("cam0", "cam1", "depth0"):
         with open(os.path.join(mav, sub, "data.csv"), "w") as f:

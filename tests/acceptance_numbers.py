@@ -1,10 +1,12 @@
 """The CPU numbers that PERF.md, ROADMAP.md and tests/test_torch_acceptance.py
 quote beside the acceptance scenarios (`orbslam3_tpu_torch/utils/acceptance.py`).
 
-    JAX_PLATFORMS=cpu python tests/acceptance_numbers.py jax A B C D E F G H I
-    python tests/acceptance_numbers.py port A B C D E F G H I
+    JAX_PLATFORMS=cpu python tests/acceptance_numbers.py jax A B C D E F G H I J
+    python tests/acceptance_numbers.py port A B C D E F G H I J
     python tests/acceptance_numbers.py seeds 0 12        # B under System seeds 0..11
-    python tests/acceptance_numbers.py cut 72 40         # smoke phases 8 and 11c, cut
+    python tests/acceptance_numbers.py cut 72 30         # smoke phases 8 and 11c, cut
+    python tests/acceptance_numbers.py cut 0 0 6 6 12    # phase 16's J, G and F, cut
+    JAX_PLATFORMS=cpu python tests/acceptance_numbers.py floats   # J's and TUM-VI's float gaps
 
 `jax`: each JAX test's drive on the JAX package, on the inputs the JAX test
 builds (the builders of tests/test_torch_acceptance.py, which are the JAX
@@ -12,7 +14,13 @@ tests' own code), printing the values its gates read.  `port`: the port's
 `run_<letter>("cpu")`.  `seeds`: scenario B on the port with other seeds of
 the System's RANSAC generator (its initialization frame and frames OK).
 `cut`: chip_smoke.py's phase 8 and 11c drives at the given depths on the
-CPU, with their gates.  Not a test module: pytest does not collect it.
+CPU, with their gates (a depth of 0 skips the drive), then phase 16's J, G
+and F cut that many frames after their IMU initializes, where given.
+`floats`: the numbers behind the tolerances of J's and the TUM-VI arm's
+tests (the predicted scale levels at J's first tracked frame, JAX's and the
+port's first tracked frames from their own maps and from JAX's, the
+rectification maps' extent, both runners on a short TUM-VI tree).  Not a
+test module: pytest does not collect it.
 """
 
 import json
@@ -107,6 +115,24 @@ def _jax(letter: str) -> dict:
             s = ate(sys_, pos)[1]
         return dict(resets=sys_.n_resets, imu_frame=imu_frame, rmse=rmse, scale=s,
                     n_kf=int(sys_.map.n_kf))
+    if letter == "J":
+        cfgs, rect = T._jax_j_setup()
+        pairs, imu = T._jax_j_inputs(70, rect)
+        sys_ = jsis.StereoInertialSystem(*cfgs)
+        imu_frame = []
+
+        def feed(i):
+            for sample in imu[i]:
+                sys_.grab_imu(*sample)
+            sys_.track_stereo(jnp.asarray(pairs[i][0]), jnp.asarray(pairs[i][1]), ts=i / 10.0)
+            if sys_.imu_initialized and not imu_frame:
+                imu_frame.append(i)
+        st, init = states(sys_, feed, 70)
+        rmse = ate(sys_, T._jax_j_pos, with_scale=False)[0]
+        s = ate(sys_, T._jax_j_pos)[1]
+        return dict(resets=sys_.n_resets, state=int(sys_.state), init=init,
+                    n_ok=st.count(jsystem.OK), imu_frame=imu_frame, rmse=rmse, scale=s,
+                    n_kf=int(sys_.map.n_kf))
     if letter == "H":
         poses, world = T._jax_ring_poses(270), RingWorld()
         sys_ = jsystem.System(H.jax_config(acc.h_config()))
@@ -139,18 +165,112 @@ def _seeds(lo: int, hi: int) -> None:
               f"{sum(s == system.OK for s in d.states)} of {len(ffs)} OK", flush=True)
 
 
-def _cut(n8: int, n11c: int) -> None:
+def _cut(n8: int, n11c: int, after_imu: dict) -> None:
     from orbslam3_tpu_torch.pipeline import stereo_inertial_system as sis
+    from orbslam3_tpu_torch.utils import acceptance as acc
     from orbslam3_tpu_torch.utils import imu_scene
     from orbslam3_tpu_torch.utils import sensor_scene as ss
-    cfg = imu_scene.InertialScene(frames=n8, viba1_by=n8 - 1)
-    sys_, d = imu_scene.drive(cfg, imu_scene.render_frames(cfg), "cpu")
-    print(f"phase 8 at {n8} frames: {imu_scene.check_gates(cfg, sys_, d)}", flush=True)
-    scn = ss.FisheyeSIScene(frames=n11c)
-    images = scn.render()
-    sys_ = sis.StereoInertialSystem(*scn.configs(), device="cpu")
-    d = ss.drive(sys_, range(n11c), ss.fisheye_si_step(scn, images))
-    print(f"phase 11c at {n11c} frames: {ss.check_fisheye_si_gates(scn, sys_, d)}", flush=True)
+    if n8:
+        cfg = imu_scene.InertialScene(frames=n8, viba1_by=n8 - 1)
+        sys_, d = imu_scene.drive(cfg, imu_scene.render_frames(cfg), "cpu")
+        print(f"phase 8 at {n8} frames: {imu_scene.check_gates(cfg, sys_, d)}", flush=True)
+    if n11c:
+        scn = ss.FisheyeSIScene(frames=n11c)
+        images = scn.render()
+        sys_ = sis.StereoInertialSystem(*scn.configs(), device="cpu")
+        d = ss.drive(sys_, range(n11c), ss.fisheye_si_step(scn, images))
+        print(f"phase 11c at {n11c} frames: {ss.check_fisheye_si_gates(scn, sys_, d)}",
+              flush=True)
+    for letter, n in after_imu.items():
+        r = acc.SCENARIOS[letter]("cpu", after_imu=n)
+        print(f"phase 16 {letter} to its IMU initialization + {n} frames: {r['frames']} "
+              f"frames, the IMU at frame {r['imu_frame']}, bad {r['bad']}, gates "
+              f"{json.dumps(r['gates'], default=str)}, {r['seconds']:.1f} s", flush=True)
+
+
+def _floats() -> None:
+    import tempfile
+
+    import jax.numpy as jnp
+    import torch
+    import test_torch_acceptance as T
+    import torch_parity_helpers as H
+    from orbslam3_tpu.features import extractor as jx
+    from orbslam3_tpu.pipeline import stereo_inertial_system as jsis
+    from orbslam3_tpu_torch import config as presets
+    from orbslam3_tpu_torch.pipeline import stereo_inertial_system as tsis
+    from orbslam3_tpu_torch.slam_map import convert
+    from orbslam3_tpu_torch.tools import run_euroc
+    from orbslam3_tpu_torch.utils import acceptance as acc
+    from orbslam3_tpu_torch.utils import tumvi_scene
+
+    # J's first tracked frame: the predicted scale levels at the init pose
+    rect = acc.j_rectification()
+    sys_ = tsis.StereoInertialSystem(*acc.j_configs(rect), device="cpu")
+    sys_.track_stereo(*acc.j_pairs(range(1), rect)[0], ts=0.0)
+    v = sys_.view
+    dist = torch.linalg.norm(v.xyz @ sys_.R_cur.T + sys_.t_cur, dim=-1)
+    lv = (torch.log(v.max_dist / dist) / torch.log(torch.tensor(1.2)))[v.valid]
+    off = lv - torch.round(lv)
+    print(f"J at the init pose: {len(lv)} view points, predicted-level argument within "
+          f"{float(off.abs().max()):.3g} of an integer, {int((off > 0).sum())} just above it",
+          flush=True)
+    # JAX and the port from their own maps, then the port from JAX's state
+    jcfgs, jrect = T._jax_j_setup()
+    pairs, imu = T._jax_j_inputs(3, jrect)
+    feats = [[jx.extract_jit(jnp.asarray(img), jcfgs[0].orb) for img in pr] for pr in pairs]
+    jsys = jsis.StereoInertialSystem(*jcfgs)
+    own, given = (tsis.StereoInertialSystem(*acc.j_configs(rect), device="cpu")
+                  for _ in range(2))
+
+    def feed(s, i):
+        for sample in imu[i]:
+            s.grab_imu(*sample)
+        (fl, fr), (il, ir) = feats[i], pairs[i]
+        if isinstance(s, jsis.StereoInertialSystem):
+            s.track_stereo(jnp.asarray(il), jnp.asarray(ir), ts=i / 10.0, features_l=fl,
+                           features_r=fr)
+        else:
+            s.track_stereo(il, ir, ts=i / 10.0,
+                           features_l=convert.frame_from_numpy(H.fields(fl)),
+                           features_r=convert.frame_from_numpy(H.fields(fr)))
+    for s in (jsys, own, given):
+        feed(s, 0)
+    gap = np.abs(convert.to_numpy(own.map)["pt_xyz"] - H.fields(jsys.map)["pt_xyz"]).max()
+    H.load_inertial_snapshot(H.inertial_snapshot(jsys), given)
+    H.copy_keyframe_db(jsys, given)
+    for i in (1, 2):
+        for s in (jsys, own, given):
+            feed(s, i)
+        pj = np.asarray(jsys.t_cur)
+        print(f"J frame {i}: inliers JAX {jsys.last_track_inliers}, port from its own map "
+              f"{own.last_track_inliers} (points within {gap:.3g} of JAX's; pose "
+              f"{np.abs(own.t_cur.numpy() - pj).max():.3g} apart), from JAX's state "
+              f"{given.last_track_inliers} ({np.abs(given.t_cur.numpy() - pj).max():.3g} apart)",
+              flush=True)
+    # the rectification maps' extent in the raw image
+    *_, t0, t1 = presets.tumvi_stereo_inertial()
+    for name, maps in (("J", rect[:2]), ("TUM-VI", (t0, t1))):
+        ext = [(float(m[..., k].min()), float(m[..., k].max())) for m in maps for k in (0, 1)]
+        print(f"{name} rectification maps sample x, y in {ext} (cam0 x, cam0 y, cam1 x, "
+              f"cam1 y)", flush=True)
+    # both runners on a short TUM-VI tree
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "tools"))
+    import run_euroc as jax_run_euroc
+    with tempfile.TemporaryDirectory() as tmp:
+        root = tumvi_scene.write_tree(os.path.join(tmp, "seq"), 8)
+        args = [root, "--dataset", "tumvi", "--mode", "stereo-inertial", "--features", "1000",
+                "--max-frames", "4", "--out"]
+        old = sys.argv
+        sys.argv = ["run_euroc.py"] + args + [os.path.join(tmp, "jax.txt")]
+        try:
+            jax_run_euroc.main()
+        finally:
+            sys.argv = old
+        run_euroc.main(args + [os.path.join(tmp, "port.txt"), "--device", "cpu"])
+        j, t = (np.loadtxt(os.path.join(tmp, f)) for f in ("jax.txt", "port.txt"))
+    print(f"TUM-VI short tree, 4 frames: the runners' positions {np.abs(t[:, 1:4] - j[:, 1:4]).max():.3g}"
+          f" and quaternions {np.abs(t[:, 4:] - j[:, 4:]).max():.3g} apart", flush=True)
 
 
 def main(argv) -> int:
@@ -160,7 +280,11 @@ def main(argv) -> int:
     if what == "seeds":
         _seeds(int(args[0]), int(args[1]))
     elif what == "cut":
-        _cut(int(args[0]), int(args[1]))
+        _cut(int(args[0]), int(args[1]),
+             {k: int(v) for k, v in zip("JGF", args[2:5])})
+    elif what == "floats":
+        import conftest  # noqa: F401  (pins JAX to the CPU)
+        _floats()
     else:
         if what == "jax":
             import conftest  # noqa: F401  (pins JAX to the CPU)

@@ -32,15 +32,19 @@ import numpy as np
 import pytest
 import torch
 
+import test_fisheye_stereo_inertial as fsi
 import test_frontend_e2e as fe
 import test_photometric_stress as ps
 import torch_parity_helpers as H
 from orbslam3_tpu.features import extractor as jx
+from orbslam3_tpu.io import euroc as jeuroc
+from orbslam3_tpu.io import rectify as jrect
 from orbslam3_tpu.ops import lie as jlie
 from orbslam3_tpu.ops import matching as jmatching
 from orbslam3_tpu.pipeline import inertial_system as jis
 from orbslam3_tpu.pipeline import loop_closing as jlc
 from orbslam3_tpu.pipeline import stereo_inertial_system as jsis
+from orbslam3_tpu.pipeline import stereo_system as jss
 from orbslam3_tpu.pipeline import system as jsystem
 from orbslam3_tpu.place import keyframe_db as jkdb
 from orbslam3_tpu.utils import synth_render as jsr
@@ -53,6 +57,7 @@ from orbslam3_tpu_torch.utils import acceptance as acc
 from orbslam3_tpu_torch.utils import seeded_scene as ss
 from orbslam3_tpu_torch.utils import synth_render as tsr
 from test_inertial_pipeline import FPS, G, IMU_HZ, camera_path_smooth
+from test_torch_merge import _fields_close
 from test_long_run import RingWorld as JaxRingWorld
 from test_pipeline_e2e import SyntheticWorld as JaxWorld
 from test_pipeline_e2e import camera_path as jax_camera_path
@@ -96,18 +101,19 @@ def _same_frame(tff, jff):
     np.testing.assert_array_equal(tff.octave.numpy(), _np(jff.octave))
 
 
-def _extraction_matches_jax(img):
+def _extraction_matches_jax(img, p=P, min_valid=800):
     """The image through JAX's `extract_jit` and the port's `extract`,
     keypoint by keypoint (`acc.extraction_diff`): the same keypoints on
-    every level; at most EXTRACT_BINS_OFF in another angle bin and
-    EXTRACT_BITS_OFF descriptor bits off at the others, their angles within
-    EXTRACT_ANGLE_TOL degrees."""
-    fj = jx.extract_jit(jnp.asarray(img), JP)
-    ft = tx.extract(torch.from_numpy(np.asarray(img, np.float32)), P)
+    every level, more than `min_valid` of them; at most EXTRACT_BINS_OFF in
+    another angle bin and EXTRACT_BITS_OFF descriptor bits off at the
+    others, their angles within EXTRACT_ANGLE_TOL degrees."""
+    fj = jx.extract_jit(jnp.asarray(img), jx.OrbParams(n_features=p.n_features,
+                                                       n_levels=p.n_levels))
+    ft = tx.extract(torch.from_numpy(np.asarray(img, np.float32)), p)
     f = {k: np.asarray(v) for k, v in fj._asdict().items()}
     f["desc"] = f["desc"].view(np.int32)
     d = acc.extraction_diff(ft, convert.frame_from_numpy(f))
-    assert d["keypoints_equal"] and d["n_valid"] > 800, d
+    assert d["keypoints_equal"] and d["n_valid"] > min_valid, d
     assert d["bins_off"] <= EXTRACT_BINS_OFF and d["bits_off"] <= EXTRACT_BITS_OFF, d
     assert d["max_angle"] <= EXTRACT_ANGLE_TOL, d
     return jsystem.FeatureFrame(*(np.asarray(x) for x in fj)), ft
@@ -540,8 +546,9 @@ def test_card_checks_hold_a_copy_against_its_original():
     sys_ = tsystem.System(acc.i_config(), device="cpu")
     step = lambda s, i: s.track_monocular(None, ts=i * 0.05, features=ffs[i])
     d = acc.drive(sys_, 5, step, torch.device("cpu"), keep_copy=True)
-    assert d.first_tracked == d.init_frame + 1 and d.cpu_copy is not sys_
-    bad, out = acc._track_check(d, step)
+    [h] = d.held
+    assert h.frame == d.init_frame + 1 and h.cpu_copy is not sys_ and h.levels is None
+    bad, [out] = acc._track_check(d, step)
     assert bad == [] and out["pose"] == 0.0 and out["inliers"][0] == out["inliers"][1] > 20
     img = acc.sweep_images(False, 1)[0][0]
     bad, out = acc._extract_check(img, tx.extract(torch.from_numpy(img), P), P)
@@ -549,9 +556,248 @@ def test_card_checks_hold_a_copy_against_its_original():
                                      kp_bits_off=0, bits_off=0, max_angle=0.0)
 
 
+def test_j_card_check_skips_the_tracked_frame_at_the_init_pose():
+    """How J's card check holds its first tracked frame.  After the stereo
+    initialization every map point's max_dist is its creation distance
+    times 1.2^octave, and the first tracked frame's guess is the
+    initialization's pose, so every predicted scale level,
+    ceil(log(max_dist / dist) / log 1.2), is taken within 1e-5 of an
+    integer, some of them just above it (`tests/acceptance_numbers.py
+    floats` prints how many).  A float rounding decides the level there: on
+    an H100 that frame's pose came out 1.3e-3 from the CPU's, with 299
+    inliers against 298.  So `drive(keep_copy=True, hold=2, with_levels=1)`
+    records that step's predicted levels (`predicted_levels`) beside two
+    CPU copies of the state before it, and `_track_check` runs the frame on
+    one copy as it is and on the other with the recorded levels played in
+    place of its own, then the second tracked frame as it is.  Here the
+    "card" is a CPU System that predicts its levels in float64, which rounds
+    some of them apart from float32: without its levels the copy misses
+    (measured: 6.3e-3, 300 inliers against 299), with them it agrees
+    exactly.  A played tape replaces what `tracking.predict_scale` and
+    fusion's name for it compute, counts the levels it changed, and
+    restores both."""
+    from orbslam3_tpu_torch.pipeline import fusion, tracking
+    rect = acc.j_rectification()
+    pairs = acc.j_pairs(range(3), rect)
+    sys_ = tsis.StereoInertialSystem(*acc.j_configs(rect), device="cpu")
+    sys_.track_stereo(*pairs[0], ts=0.0)
+    v = sys_.view
+    dist = torch.linalg.norm(v.xyz @ sys_.R_cur.T + sys_.t_cur, dim=-1)
+    lv = (torch.log(v.max_dist / dist) / torch.log(torch.tensor(1.2)))[v.valid]
+    assert len(lv) > 400 and float((lv - torch.round(lv)).abs().max()) < 1e-5
+    assert int((lv > torch.round(lv)).sum()) > 0
+
+    own = tracking.predict_scale
+    tape: list = []
+    with acc.predicted_levels(tape):
+        a = tracking.predict_scale(dist, v.max_dist, 1.2, 8)
+    shifted = [torch.clamp(a + 1, 0, 7)]
+    with acc.predicted_levels(shifted, play=True) as seen:
+        b = fusion.predict_scale(dist, v.max_dist, 1.2, 8)
+    assert tracking.predict_scale is fusion.predict_scale is own
+    assert torch.equal(tape[0], a) and torch.equal(b, shifted[0])
+    assert seen == {"calls": 1, "differ": int((a < 7).sum()), "mismatched": 0} and seen["differ"]
+
+    def step(s, i):
+        for sample in acc.j_imu(i):
+            s.grab_imu(*sample)
+        s.track_stereo(*pairs[i], ts=i / acc.J_FPS)
+
+    def card_levels(dist, max_dist, scale_factor, n_levels):
+        r = max_dist.double() / torch.clamp_min(dist.double(), 1e-6)
+        lv = torch.ceil(torch.log(r) / np.log(scale_factor))
+        return torch.clamp(lv, 0, n_levels - 1).to(torch.int32)
+
+    sys_ = tsis.StereoInertialSystem(*acc.j_configs(rect), device="cpu")
+    tracking.predict_scale = fusion.predict_scale = card_levels
+    try:
+        d = acc.drive(sys_, 3, step, torch.device("cpu"), keep_copy=True, hold=2, with_levels=1)
+    finally:
+        tracking.predict_scale = fusion.predict_scale = own
+    assert d.init_frame == 0 and [h.frame for h in d.held] == [1, 2]
+    assert len(d.held[0].levels) >= 1 and d.held[1].levels is None
+    bad, (first, second) = acc._track_check(d, step)
+    assert bad == [] and first["levels_differ"] > 0
+    assert first["pose"] == 0.0 and first["inliers"][0] == first["inliers"][1] > 200
+    plain = first["plain_inliers"]
+    assert first["plain_pose"] > 1e-4 or plain[0] != plain[1], first
+    assert second["pose"] == 0.0 and second["inliers"][0] == second["inliers"][1] > 200
+
+
+def test_acceptance_command_line(capsys):
+    """`python -m orbslam3_tpu_torch.utils.acceptance C --device cpu` runs
+    scenario C and prints its JSON line (every gate held, exit 0); without
+    `--device cpu` and with no card it refuses, as the tools do."""
+    import json
+    assert acc.main(["C", "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == "device: cpu" and lines[1].startswith("C: ")
+    r = json.loads(lines[1][3:])
+    assert r["bad"] == [] and r["extracts"] == 2 and r["gates"]["repeatability"] > 0.55
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit):
+            acc.main(["C"])
+
+
+# ----------------------------------------------------------------------- J
+def _jax_j_setup():
+    """The JAX test's rig, rectification and configurations
+    (test_fisheye_stereo_inertial.py:51-73): ((cfg, icfg, scfg), (map0,
+    map1, new_k4, baseline, R1))."""
+    R_rel, t_rel = fsi.rig()
+    map0, map1, new_k4, baseline, R1, _ = jrect.stereo_rectify(
+        fsi.KB8[:4], fsi.KB8[4:], fsi.KB8[:4], fsi.KB8[4:], R_rel, t_rel, fsi.HW, model="kb8")
+    cfg = jsystem.SlamConfig(
+        cam_model="pinhole", cam_params=tuple(float(v) for v in new_k4), image_hw=fsi.HW,
+        orb=jx.OrbParams(n_features=800, n_levels=8), max_frames_between_kf=6,
+        min_init_matches=60, ba_caps=(24, 4096, 16384), stereo_bf=float(new_k4[0]) * baseline)
+    Tbc = np.eye(4)
+    Tbc[:3, :3] = np.asarray(R1, np.float64).T
+    icfg = jis.InertialConfig(imu_freq=fsi.IMU_HZ, init_time_s=1.2, init_min_kfs=4,
+                              Tbc=tuple(Tbc.reshape(-1).tolist()))
+    return (cfg, icfg, jss.StereoConfig(baseline=baseline)), (map0, map1, new_k4, baseline, R1)
+
+
+def _jax_j_acc_w(t):
+    """The JAX test's `acc_w` (nested in the test, copied)."""
+    return np.array([-0.35 * 0.49 * np.sin(0.7 * t), -0.30 * 1.21 * np.sin(1.1 * t),
+                     -0.12 * 0.81 * np.sin(0.9 * t)])
+
+
+def _jax_j_pos(t):
+    """The JAX test's `pos` (nested in the test, copied)."""
+    return np.array([0.22 * t + 0.35 * np.sin(0.7 * t), 0.30 * np.sin(1.1 * t),
+                     -3.0 + 0.12 * np.sin(0.9 * t)])
+
+
+def _jax_j_inputs(n, rect):
+    """The JAX test's first n rectified pairs (its renders through JAX's
+    `apply_undistort`) and each frame's IMU samples, in its calls and its
+    order (test_fisheye_stereo_inertial.py:42-113)."""
+    map0, map1 = rect[:2]
+    rng = np.random.default_rng(12)
+    tex = jsr.block_texture(rng, block=10)
+    mesas = tuple((x0, x0 + w, y0, y0 + h, -z)
+                  for x0, y0, w, h, z in
+                  zip(rng.uniform(-2, 5, 10), rng.uniform(-2, 4, 10),
+                      rng.uniform(0.8, 1.6, 10), rng.uniform(0.8, 1.6, 10),
+                      rng.uniform(0.4, 1.0, 10)))
+    R_rel, t_rel = fsi.rig()
+    R_cw = np.eye(3, dtype=np.float64)
+    rays_l = jsr.kb8_rays(fsi.KB8, fsi.HW)
+    rays_r = jsr.kb8_rays(fsi.KB8, fsi.HW)
+    dt_f, dt_i = 1.0 / fsi.FPS, 1.0 / fsi.IMU_HZ
+    pairs, imu = [], []
+    for i in range(n):
+        t_frame, rows = i * dt_f, []
+        if i > 0:
+            t0, k = (i - 1) * dt_f, 1
+            while t0 + k * dt_i <= t_frame + 1e-9:
+                tm = t0 + k * dt_i
+                rows.append((tm, np.zeros(3), R_cw @ (_jax_j_acc_w(tm - 0.5 * dt_i) - fsi.G_W)))
+                k += 1
+        imu.append(rows)
+        t_cw_l = -R_cw @ _jax_j_pos(t_frame)
+        R_cw_r = R_rel @ R_cw
+        t_cw_r = R_rel @ t_cw_l + t_rel
+        img_l = jsr.render_plane(R_cw, t_cw_l, fsi.KB8[:4], fsi.HW, tex, tex_scale=60.0,
+                                 mesas=mesas, rays=rays_l)
+        img_r = jsr.render_plane(R_cw_r, t_cw_r, fsi.KB8[:4], fsi.HW, tex, tex_scale=60.0,
+                                 mesas=mesas, rays=rays_r)
+        pairs.append((jeuroc.apply_undistort(img_l, map0), jeuroc.apply_undistort(img_r, map1)))
+    return pairs, imu
+
+
+def test_j_inputs_match_jax():
+    """J: the rig (its rotation through each package's float32 `exp_so3`),
+    the KB8 rectification (both maps, `new_k4`, the baseline, `R1`), the
+    three configurations (the rectified pinhole, `stereo_bf`, `Tbc` with
+    `R1`), the first three rectified pairs and the IMU samples of frames 0-2
+    (none, then 20 each) bit-equal to the JAX test's."""
+    jcfgs, jrect = _jax_j_setup()
+    R, t = acc.j_rig()
+    Rj, tj = fsi.rig()
+    np.testing.assert_array_equal(R, Rj)
+    np.testing.assert_array_equal(t, tj)
+    rect = acc.j_rectification()
+    for a, b in zip(rect, jrect):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    np.testing.assert_allclose(rect[3], fsi.BASELINE, rtol=1e-6)
+    for a, b in zip(acc.j_configs(rect), jcfgs):
+        assert H.jax_config(a) == b, (a, b)
+    pairs, imu = _jax_j_inputs(3, jrect)
+    for (a, b), (c, d) in zip(acc.j_pairs(range(3), rect), pairs):
+        assert a.dtype == b.dtype == np.float32
+        np.testing.assert_array_equal(a, c)
+        np.testing.assert_array_equal(b, d)
+    _same_imu([acc.j_imu(i) for i in range(3)], imu)
+    assert [len(r) for r in imu] == [0, 20, 20]
+
+
+def test_j_stereo_init_and_first_tracked_frames_match_jax():
+    """J's first three frames through the JAX and the port's
+    `StereoInertialSystem` at J's configuration.  The port's extraction of
+    the first pair matches JAX's (`_extraction_matches_jax`; measured on
+    frames 0-2: the same 800 keypoints, at most one keypoint in another
+    bin and one bit off per image, angles within 0.0055 degrees); then
+    JAX's features of each image are handed to both Systems with the
+    rectified images (the refinement reads them).  Frame 0, the stereo
+    initialization: the rectified pair's depths (validity equal, depths
+    within 1e-4 relative) and the map and feature bank made from them
+    (integer fields equal, floats within 1e-4, scale ranges within 1e-4
+    relative), OK at the origin.  Frames 1 and 2, the first tracked frames
+    (before the IMU initializes), from JAX's state after frame 0 given to
+    the port (`inertial_snapshot`, the keyframe database): poses within
+    1e-4, the same inliers.  From its own map (points within float32
+    rounding of JAX's) the port keeps one inlier fewer than JAX at frame 1
+    (`tests/acceptance_numbers.py floats`): every predicted scale level of
+    that frame is taken at an integer
+    (`test_j_card_check_skips_the_tracked_frame_at_the_init_pose`), and the
+    rounding of the triangulated depth decides one of them; no logic
+    differs."""
+    jcfgs, jrect = _jax_j_setup()
+    pairs, imu = _jax_j_inputs(3, jrect)
+    tcfgs = acc.j_configs()
+    for img in pairs[0]:
+        _extraction_matches_jax(img, tcfgs[0].orb, min_valid=780)
+    jsys = jsis.StereoInertialSystem(*jcfgs)
+    tsys = tsis.StereoInertialSystem(*tcfgs, device="cpu")
+    feats = [[jx.extract_jit(jnp.asarray(img), jcfgs[0].orb) for img in pr] for pr in pairs]
+
+    def feed(s, i):
+        for sample in imu[i]:
+            s.grab_imu(*sample)
+        (fl, fr), (il, ir) = feats[i], pairs[i]
+        if isinstance(s, tsystem.System):
+            s.track_stereo(il, ir, ts=i / fsi.FPS,
+                           features_l=convert.frame_from_numpy(H.fields(fl)),
+                           features_r=convert.frame_from_numpy(H.fields(fr)))
+        else:
+            s.track_stereo(jnp.asarray(il), jnp.asarray(ir), ts=i / fsi.FPS,
+                           features_l=fl, features_r=fr)
+
+    feed(jsys, 0)
+    feed(tsys, 0)
+    assert jsys.state == tsys.state == jsystem.OK
+    np.testing.assert_array_equal(tsys._depth.valid.numpy(), _np(jsys._depth.valid))
+    np.testing.assert_allclose(tsys._depth.depth.numpy(), _np(jsys._depth.depth),
+                               rtol=1e-4, atol=0)
+    g, r = convert.to_numpy(tsys.map), H.fields(jsys.map)
+    _fields_close(g, r, atol=1e-4, skip=("pt_min_dist", "pt_max_dist"))
+    for name in ("pt_min_dist", "pt_max_dist"):
+        np.testing.assert_allclose(g[name], r[name], rtol=1e-4, err_msg=name)
+    _fields_close(convert.to_numpy(tsys.bank), H.fields(jsys.bank), atol=1e-4)
+    assert int(tsys.map.n_pt) == int(jsys.map.n_pt) > 300
+    np.testing.assert_allclose(tsys.t_cur.numpy(), np.zeros(3), atol=0)
+    H.load_inertial_snapshot(H.inertial_snapshot(jsys), tsys)
+    H.copy_keyframe_db(jsys, tsys)
+    _tracks_alike(jsys, tsys, feed, 1)
+    assert not tsys.imu_initialized and not jsys.imu_initialized
+
+
 # ------------------------------------------------------------- whole scenarios
 @pytest.mark.slow
-@pytest.mark.parametrize("which", list("ABCDEFGHI"))
+@pytest.mark.parametrize("which", list("ABCDEFGHIJ"))
 def test_whole_scenario_holds_the_jax_gates(which):
     """The whole scenario on the port on the CPU, under the JAX test's gates
     (`acceptance.run_<which>`'s `bad` lists every gate it missed).

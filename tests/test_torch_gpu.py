@@ -11,8 +11,11 @@ against the CPU's extraction, the recall curve's rows on the card against
 the CPU's from the same descriptors, the sharded BA on the card against the
 CPU in each comm mode, the System with its window BA sharded over 8
 shards of the card, the bench's chains (`orbslam3_tpu_torch.bench`) at
-cut sizes on the card against the CPU, and a System's RANSAC draws on the
-card equal to the CPU's.
+cut sizes on the card against the CPU, a System's RANSAC draws on the
+card equal to the CPU's, and acceptance scenario J (TUM-VI's rectified
+fisheye stereo-inertial configuration): its first two tracked frames on the card
+against a CPU copy, and `orb_describe` on one of its rectified atlases
+against the plain version.
 
 These need an NVIDIA GPU with nvcc and are marked `gpu`; without a card they
 skip.  With a GPU: `python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest`
@@ -859,3 +862,57 @@ def test_a_system_draws_the_cpus_samples_on_the_card(dev):
                    sim3solver.sample_indices(valid.to(s.device), 128, s.generator)]
     for a, b in zip(card.draws, cpu.draws):
         assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+
+
+def test_j_tracked_frame_on_the_card_matches_the_cpu(dev):
+    """Acceptance scenario J on the card, its first three pairs through
+    `track_stereo` (the stereo initialization, then two tracked frames):
+    the first left image's extraction on the CPU has the same keypoints;
+    each tracked frame again on a CPU copy of the state before it
+    (`acceptance.system_to`) gives the pose within 1e-4 and the same
+    inliers; `orb_describe` twice per pair.  The first tracked frame is
+    taken at the initialization's pose, where every predicted scale level
+    lies within a float rounding of an integer (on an H100 its pose came
+    out 1.3e-3 from the CPU's, with 299 inliers against 298), so the CPU
+    runs it with the card's predicted levels (`drive(with_levels=1)`): the
+    gate reads that run, and the run without them is reported."""
+    from orbslam3_tpu_torch.pipeline import stereo_inertial_system
+    from orbslam3_tpu_torch.utils import acceptance as acc
+    rect = acc.j_rectification()
+    pairs = acc.j_pairs(range(3), rect)
+    sys_ = stereo_inertial_system.StereoInertialSystem(*acc.j_configs(rect), device=dev)
+
+    def step(s, i):
+        for sample in acc.j_imu(i):
+            s.grab_imu(*sample)
+        s.track_stereo(*pairs[i], ts=i / acc.J_FPS)
+
+    orb_patches.reset_counters()
+    d = acc.drive(sys_, 3, step, dev, keep_copy=True, hold=2, with_levels=1)
+    assert orb_patches.launch_counts() == orb_patches.path_counts(6)
+    assert d.init_frame == 0 and [h.frame for h in d.held] == [1, 2]
+    assert sys_.state == system.OK
+    bad, out = acc._track_check(d, step)
+    print(out)
+    assert bad == [] and out[0]["inliers"][0] > 100 and out[1]["inliers"][0] > 100, out
+    ff = extractor.extract(torch.from_numpy(pairs[0][0]).to(dev), sys_.cfg.orb)
+    bad, out = acc._extract_check(pairs[0][0], ff, sys_.cfg.orb)
+    assert bad == [] and out["n_valid"] == 800, out
+
+
+def test_orb_describe_on_a_rectified_atlas_matches_plain(dev):
+    """`orb_describe` on the atlas of J's first rectified left image (384x384
+    over 8 levels, 800 keypoints): moments bit-equal to `ic_moments`',
+    descriptors bit-identical to the plain version's at the kernel's own
+    angles, the angles within 0.01 degrees of the plain version's."""
+    from orbslam3_tpu_torch.utils import acceptance as acc
+    img = acc.j_pairs(range(1))[0][0]
+    sel = extractor.select_keypoints(torch.from_numpy(img).to(dev), acc.j_configs()[0].orb)
+    atlas, blur, xy = sel.atlas, sel.atlas_blur, sel.xy_atlas
+    angle, desc, mom = orb_patches.orb_describe(atlas, blur, xy, with_moments=True)
+    angle_p, _ = orb_patches.describe_plain(atlas, blur, xy)
+    assert xy.shape[0] == 800
+    assert torch.equal(mom, orb_patches.ic_moments(atlas, xy))
+    assert torch.equal(desc, brief.compute_descriptors(blur, xy, angle))
+    d = (angle - angle_p).abs()
+    assert float(torch.minimum(d, 360.0 - d).max()) <= 0.01
