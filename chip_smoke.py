@@ -217,11 +217,16 @@ neighbours, 768 new points at most):
      EuRoC-layout tree of tests/test_euroc_tool.py written at full width
      (`utils/euroc_scene.py`: 60 radtan-distorted 480x752 frames of cam0
      and cam1, depth0, a 200 Hz IMU, the ground truth); its cam0 through
-     the host decoder and, where the native ingest builds (g++ and the
-     libpng headers), through it too: the two within 0.3 graylevels, 1e-3
-     where the map's source lies inside the image.  (b) the runner's five
-     arms through `run_euroc.main` on the card (the decoder that runs is
-     the one its first line names), each with the launch counters set to 0
+     the host decoder and through the native ingest, which must build
+     (`csrc/ingest.cpp`; without libpng headers, as on the card's host,
+     PIL decodes and feeds its pool; the decoder is printed): the two
+     within 0.3 graylevels, 1e-3 where the map's source lies inside the
+     image; its first 4 frames through the native ingest with CLAHE (clip
+     3.0, grid 8) against the plain stages (`io/ingest_ref.py`): within
+     1.5 graylevels away from the CLAHE bins' edges, 0.1 on average.  (b)
+     the runner's five arms through `run_euroc.main` on the card (each
+     first line must read `ingest: native (...)`), each with the launch
+     counters set to 0
      just before it and read just after, under tests/test_euroc_tool.py's
      gates: every frame processed, 0 resets, more than 60% of the frames
      in the TUM file, an ATE below 0.15 of the path's span, |scale - 1|
@@ -230,13 +235,19 @@ neighbours, 768 new points at most):
      map and the bank on the card.  Per arm: frames, fps, keyframes, the
      ATE line, the wait for the images, and per frame kind the host-clock
      median and the blocking reads with their sites (frame 0 left out: its
-     reads include the System's construction).  (c) the TUM-VI-layout tree
+     reads include the System's construction).  Right after the mono arm,
+     the same arm on the host decoder under the same gates (first line
+     `ingest: host (...)`): its tracked frames' median beside the native
+     ingest's shows whether PIL's decode threads hold the GIL against the
+     tracker.  (c) the TUM-VI-layout tree
      (`utils/tumvi_scene.py`: 60 raw KB8 fisheye frames of cam0 and cam1 at
      512x512 and 20 Hz over scenario J's world and path, a 200 Hz IMU in
      the body frame, the ground truth), its cam0 and cam1 through both
-     decoders with the TUM-VI preset's rectification maps (12a's
-     tolerances), then `--dataset tumvi --mode stereo-inertial --features
-     1000` under (b)'s gates (metric), `orb_describe` twice per pair; whether
+     decoders with the TUM-VI preset's rectification maps and 4 frames of
+     each with CLAHE (12a's checks and tolerances), then `--dataset tumvi
+     --mode stereo-inertial --features 1000 --clahe 3.0` (the native
+     ingest's CLAHE on both cameras, the option TUM-VI's users turn on)
+     under (b)'s gates (metric), `orb_describe` twice per pair; whether
      the IMU initialized is printed, not gated (with 20 frames between
      keyframes and 2 s of initialization time it need not in 60 frames).
  13. the tools (`orbslam3_tpu_torch/tools/`), each through its `main` on the
@@ -1553,31 +1564,43 @@ EUROC_ARMS = (("mono", False, 1), ("stereo", True, 2), ("rgbd", True, 1),
               ("mono-inertial", False, 1), ("stereo-inertial", True, 2))
 
 
+# the CLAHE the native ingest is held to in phase 12: (clip, grid) and the
+# frames of each camera; 12c's arm runs the runner's `--clahe` at that clip
+# (the option TUM-VI's users turn on; the runner's grid is 8)
+INGEST_CLAHE, INGEST_CLAHE_FRAMES = (3.0, 8), 4
+TUMVI_CLAHE = INGEST_CLAHE[0]
+
+
 def euroc_ingest_check(root, cam=None, umap=None, sub: str = "cam0") -> dict:
     """One camera of a tree (12a: EuRoC's cam0 through its undistortion map;
     12c: TUM-VI's cam0 and cam1 through their rectification maps) through
-    the host path (`load_image` + `apply_undistort`) and, where its library
-    builds, the native ingest; their frames must agree within test_io.py's
-    oracle tolerance (0.3 graylevels anywhere, 1e-3 where the map's source
-    pixel lies inside the image).  Returns ms per frame of each and the
-    differences."""
+    the host path (`load_image` + `apply_undistort`) and the native ingest,
+    which must build (on a host without libpng headers PIL feeds it); their
+    frames must agree within test_io.py's oracle tolerance (0.3 graylevels
+    anywhere, 1e-3 where the map's source pixel lies inside the image).
+    Then its first `INGEST_CLAHE_FRAMES` frames with CLAHE (`INGEST_CLAHE`)
+    against the plain stages (`io/ingest_ref.py`) under test_io.py's CLAHE
+    tolerance: within 1.5 graylevels away from the bin edges
+    (`ingest_ref.clahe_gaps`), 0.1 on average.  Returns the decoder, ms
+    per frame of each decoder and the differences."""
     import numpy as np
-    from orbslam3_tpu_torch.io import euroc, native_ingest
+    from orbslam3_tpu_torch.io import euroc, ingest_ref, native_ingest
 
+    if not native_ingest.available():
+        _fail(f"euroc ingest {sub}: the native ingest does not build: "
+              f"{native_ingest.build_error()}")
     seq = euroc.EurocSequence(root, cam=sub)
     cam = cam or euroc.EUROC_CAM0
     hw = cam["resolution"]
     if umap is None:
         umap = euroc.undistort_map(cam["params"], cam["distortion"], hw)
+    paths = [r.path for r in seq.images]
     t0 = time.perf_counter()
     host = [euroc.apply_undistort(seq.load_image(r), umap) for r in seq.images]
-    out = dict(native=native_ingest.available(), error=native_ingest.build_error(),
-               host_ms=(time.perf_counter() - t0) / len(host) * 1e3, native_ms=None,
-               max_diff=None, inner_diff=None, n=len(host))
-    if not out["native"]:
-        return out
+    out = dict(decoder=native_ingest.decoder(),
+               host_ms=(time.perf_counter() - t0) / len(host) * 1e3, n=len(host))
     t0 = time.perf_counter()
-    got = list(native_ingest.NativeIngest([r.path for r in seq.images], hw, umap, src_hw=hw))
+    got = list(native_ingest.NativeIngest(paths, hw, umap, src_hw=hw))
     out["native_ms"] = (time.perf_counter() - t0) / len(got) * 1e3
     if len(got) != len(host):
         _fail(f"euroc ingest {sub}: the native ingest gave {len(got)} of {len(host)} frames")
@@ -1588,14 +1611,37 @@ def euroc_ingest_check(root, cam=None, umap=None, sub: str = "cam0") -> dict:
     if out["max_diff"] > 0.3 or out["inner_diff"] > 1e-3:
         _fail(f"euroc ingest {sub}: native and host frames differ by {out['max_diff']} "
               f"({out['inner_diff']} inside)")
+    clip, grid = INGEST_CLAHE
+    eq = list(native_ingest.NativeIngest(paths[:INGEST_CLAHE_FRAMES], hw, umap, src_hw=hw,
+                                         clahe_clip=clip, clahe_grid=grid))
+    gaps = [ingest_ref.clahe_gaps(e, seq.load_image(r), umap, clahe_clip=clip, clahe_grid=grid)
+            for e, r in zip(eq, seq.images)]
+    out["clahe"] = {k: max(g[k] for g in gaps) for k in ("max", "mean", "max_off_edge", "n_edge")}
+    if len(eq) != INGEST_CLAHE_FRAMES or not (out["clahe"]["max_off_edge"] < 1.5
+                                              and out["clahe"]["mean"] < 0.1):
+        _fail(f"euroc ingest {sub}: {len(eq)} CLAHE frames, against ingest_ref {out['clahe']}")
     return out
 
 
+@contextlib.contextmanager
+def host_decoder():
+    """The runner and the pump take the host decoder (`load_image` +
+    `apply_undistort`), as where the native ingest does not build."""
+    from unittest import mock
+    from orbslam3_tpu_torch.io import native_ingest
+    with mock.patch.object(native_ingest, "available", return_value=False), \
+            mock.patch.object(native_ingest, "build_error",
+                              return_value="set aside to time the host decoder"):
+        yield
+
+
 def runner_arm(root, argv: list, label: str, metric: bool, per_frame: int, n: int,
-               span: float, dev) -> dict:
+               span: float, dev, host: bool = False) -> dict:
     """One arm of the sequence runner: `run_euroc.main(argv)` on device
-    `dev` with the launch counters set to 0 just before it and read just
-    after, under TestRunEurocTool's gates (every frame processed, 0 resets,
+    `dev` (on the host decoder where `host`, else on the native ingest,
+    which its first line must name) with the launch counters set to 0 just
+    before it and read just after, under TestRunEurocTool's gates (every
+    frame processed, 0 resets,
     more than 60% of the frames in the TUM file, ATE below 0.15 of `span`,
     for a metric arm |scale - 1| below 0.1), `orb_describe` `per_frame`
     times per frame, the map and the bank on `dev`; raises on a failed gate.
@@ -1629,7 +1675,8 @@ def runner_arm(root, argv: list, label: str, metric: bool, per_frame: int, n: in
     buf = io.StringIO()
     t0 = time.perf_counter()
     orb_patches.reset_counters()
-    with contextlib.redirect_stdout(buf), sync_census._sync_warnings(found):
+    with contextlib.redirect_stdout(buf), sync_census._sync_warnings(found), \
+            (host_decoder() if host else contextlib.nullcontext()):
         res = run_euroc.main(argv, on_frame=on_frame)
     launches = orb_patches.launch_counts()
     arm_s = time.perf_counter() - t0
@@ -1637,6 +1684,9 @@ def runner_arm(root, argv: list, label: str, metric: bool, per_frame: int, n: in
     sys_ = res["system"]
     n_run = len(rec["ingest"])
     bad = []
+    first = "ingest: host (" if host else "ingest: native ("
+    if not text.startswith(first):
+        bad.append(f"the first line reads {text.splitlines()[:1]}, not {first}...)")
     if f"processed {n} frames" not in text or n_run != n:
         bad.append(f"processed {n_run} of {n} frames")
     if sys_.n_resets != 0 or "resets=0" not in text:
@@ -1675,11 +1725,12 @@ def euroc_phase(dev) -> dict:
     """Phase 12 on device `dev`: the EuRoC-layout tree of
     tests/test_euroc_tool.py written at full width (`utils/euroc_scene`),
     its decoders held together (12a), then the sequence runner's five arms
-    through `run_euroc.main` on the card (12b, `runner_arm`); then the
-    TUM-VI-layout tree (`utils/tumvi_scene`) at 512x512, its cam0 and cam1
-    through both decoders with the preset's rectification maps, and the
-    runner's `--dataset tumvi --mode stereo-inertial` arm at the preset's
-    1000 features (12c).  Raises on a failed gate; returns the numbers."""
+    through `run_euroc.main` on the card, the mono arm again on the host
+    decoder (12b, `runner_arm`); then the TUM-VI-layout tree
+    (`utils/tumvi_scene`) at 512x512, its cam0 and cam1 through both
+    decoders with the preset's rectification maps, and the runner's
+    `--dataset tumvi --mode stereo-inertial --clahe 3.0` arm at the
+    preset's 1000 features (12c).  Raises on a failed gate; returns the numbers."""
     from orbslam3_tpu_torch import config as presets
     from orbslam3_tpu_torch.io import euroc
     from orbslam3_tpu_torch.utils import euroc_scene as es
@@ -1697,6 +1748,12 @@ def euroc_phase(dev) -> dict:
         for mode, metric, per_frame in EUROC_ARMS:
             out[mode] = runner_arm(root, [root, "--mode", mode], f"12b {mode}", metric,
                                    per_frame, n, es.span(n), dev)
+            if mode == "mono":
+                # the same arm on the host decoder, right after: PIL's decode
+                # threads would show in the tracked frames' median
+                out["mono_host"] = runner_arm(root, [root, "--mode", mode],
+                                              "12b mono host", metric, per_frame, n,
+                                              es.span(n), dev, host=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     root = os.path.join(build, f"tumvi_seq_{os.getpid()}")
@@ -1711,8 +1768,8 @@ def euroc_phase(dev) -> dict:
             tv["ingest_" + sub] = euroc_ingest_check(root, cam, umap, sub)
         n = ts.N_FRAMES
         tv.update(runner_arm(root, [root, "--dataset", "tumvi", "--mode", "stereo-inertial",
-                                    "--features", "1000"], "12c tumvi stereo-inertial", True, 2,
-                             n, ts.span(n), dev))
+                                    "--features", "1000", "--clahe", str(TUMVI_CLAHE)],
+                             "12c tumvi stereo-inertial", True, 2, n, ts.span(n), dev))
         out["tumvi_stereo_inertial"] = tv
         return out
     finally:
@@ -1735,13 +1792,13 @@ def _print_arm(label: str, a: dict) -> None:
 
 
 def _print_ingest(ig: dict) -> str:
-    if ig["native"]:
-        return (f"native ingest {ig['native_ms']:.2f} ms per frame against the host path's "
-                f"{ig['host_ms']:.2f} ms, frames within {ig['max_diff']:.3g} "
-                f"({ig['inner_diff']:.3g} inside the map's source)")
-    return (f"the native ingest does not build here ({ig['error']}): every arm runs the "
-            f"host path (load_image + apply_undistort, no CLAHE), "
-            f"{ig['host_ms']:.2f} ms per frame")
+    c = ig["clahe"]
+    return (f"native ingest ({ig['decoder']}) {ig['native_ms']:.2f} ms per frame against the "
+            f"host path's {ig['host_ms']:.2f} ms, frames within {ig['max_diff']:.3g} "
+            f"({ig['inner_diff']:.3g} inside the map's source); {INGEST_CLAHE_FRAMES} frames "
+            f"with CLAHE {INGEST_CLAHE} against ingest_ref: within {c['max_off_edge']:.3g} "
+            f"off the bin edges ({c['max']:.3g} on {c['n_edge']} edge pixels), mean "
+            f"{c['mean']:.3g}")
 
 
 def print_euroc(ep: dict) -> None:
@@ -1751,12 +1808,21 @@ def print_euroc(ep: dict) -> None:
           f"ground truth) written in {ep['tree_s']:.1f} s; {_print_ingest(ig)}", flush=True)
     for mode, *_ in EUROC_ARMS:
         _print_arm(f"12b {mode}", ep[mode])
+        if mode == "mono":
+            _print_arm("12b mono on the host decoder", ep["mono_host"])
+            nat, host = (ep[k]["kinds"].get("tracked frame", {}).get("median_ms")
+                         for k in ("mono", "mono_host"))
+            ratio = "n/a" if not (nat and host) else f"{nat / host:.3f}"
+            print(f"euroc 12b mono, native ingest against the host decoder: tracked frames' "
+                  f"median {nat} ms against {host} ms (ratio {ratio}); waits for the image "
+                  f"{ep['mono']['ingest_ms']} ms against {ep['mono_host']['ingest_ms']} ms",
+                  flush=True)
     tv = ep["tumvi_stereo_inertial"]
     print(f"euroc 12c: TUM-VI tree of {tv['ingest_cam0']['n']} frames (512x512 raw KB8 cam0, "
           f"cam1, 200 Hz body-frame IMU, ground truth) written in {tv['tree_s']:.1f} s; "
           f"rectified cam0: {_print_ingest(tv['ingest_cam0'])}; rectified cam1: "
           f"{_print_ingest(tv['ingest_cam1'])}", flush=True)
-    _print_arm("12c tumvi stereo-inertial", tv)
+    _print_arm(f"12c tumvi stereo-inertial --clahe {TUMVI_CLAHE}", tv)
 
 
 TOOLS_PLACES, TOOLS_SIZES = 16, (8, 16)

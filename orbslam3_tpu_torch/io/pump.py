@@ -134,34 +134,46 @@ def pump_euroc(seq, hw: tuple[int, int] | None = None,
                clahe_clip: float = 0.0,
                n_threads: int = 4) -> Iterator[SyncedFrame]:
     """Dataset playback through the pump: images decoded by the native
-    ingest pool (PNG -> remap -> CLAHE off the GIL) when it builds, else on
-    the host (`load_image` + `apply_undistort`, no CLAHE; the caller reads
-    `native_ingest.available()` to say which), IMU from the CSV, batched
-    exactly like the live path.  A failure of the producer thread is
-    raised here once the frames it fed are consumed."""
+    ingest pool (PNG -> remap -> resize -> CLAHE off the GIL; libpng or PIL
+    decodes, `native_ingest.decoder()` says which) wherever it builds, else
+    on the host (`load_image` + `apply_undistort`), IMU from the CSV,
+    batched exactly like the live path.  The host path has no resize and
+    no CLAHE: it raises ValueError when `clahe_clip` > 0 or `hw` differs
+    from the size it gives (the JAX package's drops both without a word).
+    A failure of the producer thread is raised here once the frames it fed
+    are consumed."""
     from . import native_ingest
 
     recs = seq.images
+    src_hw = seq.load_image(recs[0]).shape if recs else (0, 0)
+    out_hw = hw if hw is not None else src_hw
+    native = native_ingest.available()
+    if not native:
+        host_hw = remap.shape[:2] if remap is not None else src_hw
+        if clahe_clip > 0 or tuple(out_hw) != tuple(host_hw):
+            raise ValueError(
+                f"pump_euroc: the host decoder ({native_ingest.build_error()}) has no CLAHE "
+                f"and no resize: clahe_clip={clahe_clip}, {tuple(host_hw)} -> {tuple(out_hw)}")
     pump = SensorPump(timeshift_cam_imu=timeshift_cam_imu)
     for r in seq.imu:
         pump.feed_imu(r.ts, r.gyro, r.acc)
-
-    src_hw = seq.load_image(recs[0]).shape if recs else (0, 0)
-    out_hw = hw if hw is not None else src_hw
     paths = [r.path for r in recs]
 
     failed = []
 
     def produce():
         try:
-            if native_ingest.available():
+            if native:
                 rm_hw = remap.shape[:2] if remap is not None else out_hw
                 src = native_ingest.NativeIngest(
                     paths, rm_hw, remap=remap, src_hw=src_hw,
                     resize_hw=out_hw, clahe_clip=clahe_clip,
                     n_threads=n_threads)
-                for rec, img in zip(recs, src):
-                    pump.feed_image(rec.ts, img)
+                try:
+                    for rec, img in zip(recs, src):
+                        pump.feed_image(rec.ts, img)
+                finally:
+                    src.close()
             else:
                 from . import euroc
                 for rec in recs:

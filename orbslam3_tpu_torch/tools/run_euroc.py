@@ -8,9 +8,10 @@ Usage:
 
 The port of `tools/run_euroc.py`.  The sequence dir is the standard ASL
 layout (contains mav0/).  EuRoC images are radtan-undistorted by the native
-C++ ingest (`io/native_ingest.py`) when it builds, else on the host
-(`load_image` + `apply_undistort`, which has no CLAHE); the tool prints
-which decoder ran (`ingest: native` or `ingest: host (...)`).  The System
+C++ ingest (`io/native_ingest.py`; libpng or PIL decodes) when it builds,
+else on the host (`load_image` + `apply_undistort`, which has no CLAHE:
+`--clahe` is refused there); the tool prints which decoder ran (`ingest:
+native (libpng)`, `ingest: native (pil)` or `ingest: host (...)`).  The System
 runs on the first CUDA device unless `--device cpu` is given; there is no
 fallback.  The trajectory is written in the TUM format and evaluated
 against the ground truth with Horn + scale alignment (reference oracle
@@ -133,8 +134,11 @@ def main(argv=None, on_frame=None) -> dict:
         min(args.max_frames, len(seq.images))
     native = native_ingest.available()
     decoder = "native" if native else "host"
-    print("ingest: native" if native else
-          f"ingest: host ({native_ingest.build_error()}; no CLAHE)", flush=True)
+    if not native and args.clahe > 0:
+        ap.error(f"--clahe {args.clahe}: the host decoder has no CLAHE, and the native "
+                 f"ingest does not build here ({native_ingest.build_error()})")
+    print(f"ingest: native ({native_ingest.decoder()})" if native else
+          f"ingest: host ({native_ingest.build_error()})", flush=True)
 
     def make_stream(s, umap):
         """The native threaded ingest when its library builds, else the

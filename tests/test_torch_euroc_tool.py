@@ -25,6 +25,7 @@ import torch
 
 from orbslam3_tpu_torch import config as tpresets
 from orbslam3_tpu_torch.io import euroc as teuroc
+from orbslam3_tpu_torch.io import native_ingest
 from orbslam3_tpu_torch.pipeline import stereo_system as tss
 from orbslam3_tpu_torch.tools import run_euroc
 from orbslam3_tpu_torch.utils import euroc_scene as es
@@ -68,7 +69,8 @@ def test_port_tool_arm(euroc_tree, capsys, tmp_path, mode, metric):  # noqa: F81
     traj = str(tmp_path / "traj.txt")
     res, out = _run([euroc_tree, "--mode", mode, "--out", traj, "--features", "1200"], capsys)
     _check(out, traj, metric)
-    assert res["decoder"] == "native" and out.splitlines()[0] == "ingest: native"
+    assert res["decoder"] == "native"
+    assert out.splitlines()[0] == f"ingest: native ({native_ingest.decoder()})"
 
 
 @pytest.mark.slow

@@ -6,7 +6,8 @@ on the card, the VI BA, the COO BA and the post-loop GBA, a loop closure, a
 map merge and the GNSS BA on the card against the CPU; a stereo pair through
 `track_stereo` on the card against the CPU, `orb_describe`'s launches per
 stereo frame, `fisheye_stereo_match` on the card against the CPU, the
-sequence runner's mono arm on the card, the extraction bench on the card
+sequence runner's mono arm on the card, the native ingest on the card's
+host against its plain stages, the extraction bench on the card
 against the CPU's extraction, the recall curve's rows on the card against
 the CPU's from the same descriptors, the sharded BA on the card against the
 CPU in each comm mode, the System with its window BA sharded over 8
@@ -716,8 +717,8 @@ def test_fisheye_stereo_match_on_the_card_matches_the_cpu(dev):
 def test_run_euroc_mono_arm_on_the_card(dev, tmp_path, capsys):
     """The sequence runner's mono arm on the card for 20 frames of the
     EuRoC-layout tree: `orb_describe` once per frame, the decoder named on
-    the first line (the native ingest where it builds, else the host path
-    with the reason), the System's state on the card, and no blocking read
+    the first line (the native ingest, which builds on the card's host),
+    the System's state on the card, and no blocking read
     at the frame's upload (pinned and asynchronous)."""
     from orbslam3_tpu_torch.io import native_ingest
     from orbslam3_tpu_torch.tools import run_euroc
@@ -730,14 +731,37 @@ def test_run_euroc_mono_arm_on_the_card(dev, tmp_path, capsys):
         res = run_euroc.main([tree, "--mode", "mono", "--out", str(tmp_path / "t.txt")])
     assert orb_patches.launch_counts() == orb_patches.path_counts(20)
     first = capsys.readouterr().out.splitlines()[0]
-    if native_ingest.available():
-        assert first == "ingest: native"
-    else:
-        assert first.startswith("ingest: host (native ingest library unavailable: ")
+    assert native_ingest.available(), native_ingest.build_error()
+    assert first == f"ingest: native ({native_ingest.decoder()})"
     sys_ = res["system"]
     assert sys_.map.pt_xyz.device.type == "cuda" and sys_.n_resets == 0
     assert len(sys_.trajectory) > 12
     assert not any("_image_on_device" in s or "_extract" in s for s in found), found
+
+
+def test_native_ingest_builds_on_the_cards_host(dev, tmp_path):
+    """The native ingest builds where the card is, names its decoder (PIL
+    feeds it where g++ finds no png.h), and its first 2 frames of the
+    EuRoC-layout tree with CLAHE (clip 3.0, grid 8) through the
+    undistortion map are the plain stages' (`io/ingest_ref.py`) within
+    test_io.py's CLAHE tolerance away from the bins' edges."""
+    from orbslam3_tpu_torch.io import euroc, ingest_ref, native_ingest
+    from orbslam3_tpu_torch.utils import euroc_scene
+    assert native_ingest.available(), native_ingest.build_error()
+    assert native_ingest.decoder() == ("libpng" if native_ingest.has_png_h() else "pil")
+    seq = euroc.EurocSequence(euroc_scene.write_tree(str(tmp_path / "seq"), 2))
+    cam = euroc.EUROC_CAM0
+    hw = cam["resolution"]
+    umap = euroc.undistort_map(cam["params"], cam["distortion"], hw)
+    it = native_ingest.NativeIngest([r.path for r in seq.images], hw, umap, src_hw=hw,
+                                    clahe_clip=3.0, clahe_grid=8)
+    frames = list(it)
+    assert it.failed == 0 and it.decoder == native_ingest.decoder()
+    it.close()
+    assert len(frames) == 2
+    for img, rec in zip(frames, seq.images):
+        gaps = ingest_ref.clahe_gaps(img, seq.load_image(rec), umap, clahe_clip=3.0)
+        assert gaps["max_off_edge"] < 1.5 and gaps["mean"] < 0.1, gaps
 
 
 def test_extract_bench_on_the_card_matches_the_cpu(dev):

@@ -10,6 +10,7 @@ a float32 timestamp would be off by up to 64 s.
 """
 
 import os
+import re
 import threading
 
 import numpy as np
@@ -178,18 +179,32 @@ def test_native_ingest_bit_equal_to_jax(tmp_path, case):
         assert np.any(got[0] != np.round(got[0]))
 
 
+def _cpp_functions(text):
+    """The bodies of the functions a C++ source defines at column 0, by name."""
+    return {m.group(1): m.group(0) for m in
+            re.finditer(r"^\w[\w:<>*& ]* (\w+)\([^;{]*\) \{\n.*?^\}\n", text, re.M | re.S)}
+
+
 def test_native_ingest_is_built_from_the_ports_source():
     lib = tni._lib()
     path = os.path.realpath(lib._name)
     assert path.startswith(os.path.join(REPO, "orbslam3_tpu_torch", "build") + os.sep), path
     assert "orbslam3_tpu/native" not in path
-    with open(tni.SOURCE, "rb") as a, \
-            open(os.path.join(REPO, "orbslam3_tpu", "native", "ingest.cpp"), "rb") as b:
-        assert a.read() == b.read()      # an unedited copy
+    assert os.path.basename(path).startswith(f"ingest_{tni.decoder()}_")
+    with open(tni.SOURCE) as a, \
+            open(os.path.join(REPO, "orbslam3_tpu", "native", "ingest.cpp")) as b:
+        port, jax_src = _cpp_functions(a.read()), _cpp_functions(b.read())
+    # the decoder and the stages are the JAX package's, unedited; the
+    # worker's stages moved into finish_frame, shared with the pushed pool,
+    # and ingest_next counts frames rather than paths
+    for name in ("decode_png_gray", "apply_remap", "resize_bilinear", "apply_clahe",
+                 "ingest_failed_count"):
+        assert port[name] == jax_src[name], name
+    assert {"raw_to_gray", "finish_frame", "push_worker", "ingest_push"} <= set(port)
 
 
 def test_native_ingest_build_failure_is_reported(monkeypatch):
-    def broken():
+    def broken(decoder=None):
         raise RuntimeError("g++ failed (1): png.h: No such file or directory")
 
     monkeypatch.setattr(tni, "_LIB", None)

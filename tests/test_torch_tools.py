@@ -210,7 +210,7 @@ def mono_run(tree, tmp_path_factory):
 
 def test_tool_mono_arm_prints_jax_lines_and_writes_a_tum_file(mono_run, tree):
     out = mono_run["out"].splitlines()
-    assert out[0] == "ingest: native"
+    assert out[0] == f"ingest: native ({native_ingest.decoder()})"
     assert re.fullmatch(r"frame 0/12 state=\d+ kf=\d+ \(\d+s\)", out[1]), out
     assert re.fullmatch(r"processed 12 frames in \d+\.\ds \(\d+\.\d fps\), resets=0", out[2])
     assert out[3] == f"trajectory -> {mono_run['traj']}"
@@ -255,6 +255,25 @@ def test_tool_on_frame_hook_sees_every_frame(mono_run):
     assert track_s > 0 and ingest_s >= 0
 
 
+def test_tool_mono_arm_on_the_library_without_libpng(mono_run, tree):
+    """The library a host without libpng headers builds (the card's host's):
+    the same arm names its decoder on its first line and tracks the frames
+    to the same trajectory as `mono_run`, whose library is libpng's here."""
+    buf = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(buf):
+        mp.setattr(native_ingest, "_LIB", native_ingest.load("pil"))
+        res = run_euroc.main([tree, "--mode", "mono", "--max-frames", str(N_TREE), "--device",
+                              "cpu"])
+    out = buf.getvalue().splitlines()
+    assert mono_run["out"].splitlines()[0] == f"ingest: native ({native_ingest.decoder()})"
+    assert out[0] == "ingest: native (pil)" and "resets=0" in out[2]
+    got, want = res["system"].trajectory, mono_run["res"]["system"].trajectory
+    assert len(got) == len(want) > N_TREE // 2
+    for (ts_a, _, twc_a), (ts_b, _, twc_b) in zip(got, want):
+        assert ts_a == ts_b
+        np.testing.assert_array_equal(twc_a, twc_b)
+
+
 def test_tool_refuses_rgbd_with_tumvi(tree, capsys):
     with pytest.raises(SystemExit) as e:
         run_euroc.main([tree, "--mode", "rgbd", "--dataset", "tumvi", "--device", "cpu"])
@@ -272,14 +291,19 @@ def test_tool_refuses_the_card_without_one(tree, capsys):
 
 def test_tool_says_when_it_takes_the_host_decoder(tree, capsys, monkeypatch):
     """Where the native ingest does not build, the run says so and why on
-    its first line, and the host path's frames are JAX's host frames."""
+    its first line, and the host path's frames are JAX's host frames; a
+    CLAHE, which the host path does not have, is refused."""
     monkeypatch.setattr(native_ingest, "_LIB", None)
     monkeypatch.setattr(native_ingest, "_ERROR", "native ingest library unavailable: "
-                        "g++ failed (1): png.h: No such file or directory")
-    res = run_euroc.main([tree, "--max-frames", "4", "--device", "cpu", "--clahe", "2.0"])
+                        "g++ did not run: [Errno 2] No such file or directory: 'g++'")
+    with pytest.raises(SystemExit) as e:
+        run_euroc.main([tree, "--max-frames", "4", "--device", "cpu", "--clahe", "2.0"])
+    assert e.value.code == 2
+    assert "--clahe 2.0: the host decoder has no CLAHE" in capsys.readouterr().err
+    res = run_euroc.main([tree, "--max-frames", "4", "--device", "cpu"])
     out = capsys.readouterr().out.splitlines()
-    assert out[0] == ("ingest: host (native ingest library unavailable: g++ failed (1): "
-                      "png.h: No such file or directory; no CLAHE)")
+    assert out[0] == ("ingest: host (native ingest library unavailable: g++ did not run: "
+                      "[Errno 2] No such file or directory: 'g++')")
     assert res["decoder"] == "host" and "processed 4 frames" in out[2]
     from orbslam3_tpu.io import euroc as jeuroc
     seq = euroc.EurocSequence(tree)
