@@ -49,9 +49,10 @@ class RGBDSystem(stereo_system.StereoSystem):
     def track_rgbd(self, img, depth, ts: float, features: FeatureFrame | None = None):
         """One RGB-D frame: a uint8 image (or its features on the System's
         device) and the metric depth image aligned to it."""
-        ff = features if features is not None else self._extract(img)
-        if not isinstance(depth, torch.Tensor):
-            depth = np.asarray(depth, np.float32)
-        depth_img = self._image_on_device(depth).to(torch.float32)
-        self._depth = depth_from_image(ff, depth_img, self.bf, self.max_depth)
-        return self._track_with_depth(ff, ts)
+        with self._next_frame():
+            ff = features if features is not None else self._extract(img)
+            if not isinstance(depth, torch.Tensor):
+                depth = np.asarray(depth, np.float32)
+            depth_img = self._image_on_device(depth).to(torch.float32)
+            self._depth = depth_from_image(ff, depth_img, self.bf, self.max_depth)
+            return self._track_with_depth(ff, ts)

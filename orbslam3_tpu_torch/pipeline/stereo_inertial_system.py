@@ -41,16 +41,15 @@ class StereoInertialSystem(inertial_system.InertialSystem):
                      features_r: FeatureFrame | None = None):
         """One stereo pair after its IMU samples (`grab_imu`).  Returns
         (state, (Rwc, twc) in numpy or None)."""
-        ff_l = self._pair_depth(img_l, img_r, features_l, features_r)
-        self._frame_rows = self._interval_rows(self.last_frame_ts, ts)
-        self.last_frame_ts = ts
-        self.frame_id += 1
-        if self.state in (base.NO_IMAGES_YET, base.NOT_INITIALIZED):
-            self._stereo_initialize(ff_l, ts)
-            if self.state == base.OK:
-                self.last_body = self._cam_to_body(self.R_cur, self.t_cur)
-        elif self.state in (base.OK, base.RECENTLY_LOST):
-            self._track_frame(ff_l, ts)
+        with self._next_frame():
+            ff_l = self._pair_depth(img_l, img_r, features_l, features_r)
+            self._frame_start(ts)
+            if self.state in (base.NO_IMAGES_YET, base.NOT_INITIALIZED):
+                self._stereo_initialize(ff_l, ts)
+                if self.state == base.OK:
+                    self.last_body = self._cam_to_body(self.R_cur, self.t_cur)
+            elif self.state in (base.OK, base.RECENTLY_LOST):
+                self._track_frame(ff_l, ts)
         if self.state != base.OK:
             return self.state, None
         R_cw, t_cw = self._pose_numpy()

@@ -130,13 +130,14 @@ class StereoSystem(base.System):
                      features_r: FeatureFrame | None = None):
         """One stereo pair (uint8 images, or features on the System's
         device).  Returns (state, (Rwc, twc) in numpy or None)."""
-        ff_l = self._pair_depth(img_l, img_r, features_l, features_r)
-        return self._track_with_depth(ff_l, ts)
+        with self._next_frame():
+            ff_l = self._pair_depth(img_l, img_r, features_l, features_r)
+            return self._track_with_depth(ff_l, ts)
 
     def _track_with_depth(self, ff_l: FeatureFrame, ts: float):
-        """The depth sensors' frame step; `self._depth` holds the frame's
-        per-keypoint depth (from a pair or from a depth image)."""
-        self.frame_id += 1
+        """The depth sensors' frame step, inside the frame's span; `self._depth`
+        holds the frame's per-keypoint depth (from a pair or from a depth
+        image)."""
         if self.state in (base.NO_IMAGES_YET, base.NOT_INITIALIZED):
             self._stereo_initialize(ff_l, ts)
         elif self.state in (base.OK, base.RECENTLY_LOST):
