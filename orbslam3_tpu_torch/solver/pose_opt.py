@@ -8,6 +8,11 @@ batched; Gauss-Newton with a fixed schedule (the JAX `lax.fori_loop`
 becomes a Python loop: 4 rounds x 3 iterations = 12 steps), the inlier
 set carried as a mask.  Pose is Tcw with the left-multiplicative update
 Exp(dx) * Tcw, dx = [rho, phi].
+
+On a card, `pose_optimization` replays a captured CUDA graph of the eager
+body `_pose_optimization` from a signature's second call on
+(`utils/graphs.py`): one launch for its ~4,200 kernels.  The arithmetic is
+the eager body's, kernel for kernel.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import cameras, lie, smallsolve
+from ..utils import graphs
 from . import robust
 
 
@@ -50,8 +56,16 @@ def pose_optimization(R0, t0, X, uv, inv_sigma2, valid,
 
     X: (N,3) world points; uv: (N,2) observations; inv_sigma2: (N,) octave
     information; valid: (N,) bool.  Returns optimized pose + inliers.
-    Stays on the device: no value is read back to the host.
+    Stays on the device: no value is read back to the host.  On a card,
+    from a signature's second call on, one captured CUDA graph runs it.
     """
+    return graphs.run(_pose_optimization, R0, t0, X, uv, inv_sigma2, valid, cam_model,
+                      cam_params, rounds, its_per_round, chi2_th, min_depth)
+
+
+def _pose_optimization(R0, t0, X, uv, inv_sigma2, valid, cam_model, cam_params, rounds,
+                       its_per_round, chi2_th, min_depth) -> PoseOptResult:
+    """The eager body of `pose_optimization`."""
     delta_huber = chi2_th ** 0.5
     eye6 = torch.eye(6, dtype=X.dtype, device=X.device)
 

@@ -17,6 +17,12 @@ the local update.  Gauss-Newton runs a fixed 4 x 5 schedule (the JAX
 `fori_loop` is a Python loop) and solves with the unrolled Cholesky of
 `ops/smallsolve` as the JAX package does.  Nothing is read back to the host:
 the Cholesky factors and the inverse take their `_ex` form.
+
+On a card, each public function replays a captured CUDA graph of its eager
+body (`_vi_pose_optimization`, `_vi_pose_optimization_last_frame`) from a
+signature's second call on (`utils/graphs.py`): one launch for the ~44,800
+kernels of a LastFrame optimization.  The arithmetic is the eager body's,
+kernel for kernel.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import cameras, lie, smallsolve
+from ..utils import graphs
 from . import robust
 from .inertial import PreintFactor, factor_residual, info_from_cov, jacobian, select
 from .vi_ba import STATE_DIM, apply_delta
@@ -90,7 +97,18 @@ def vi_pose_optimization(Rwb0, pwb0, vel0, bias0, Rwb_kf, pwb_kf, vel_kf, bias_k
                          chi2_th: float = robust.CHI2_MONO) -> VIPoseResult:
     """Optimize the current frame's body state against the fixed last
     keyframe.  `factor` holds one preintegration (a one-row stack) from the
-    keyframe to this frame; X/uv are the matched map points and keypoints."""
+    keyframe to this frame; X/uv are the matched map points and keypoints.
+    On a card, from a signature's second call on, one captured CUDA graph
+    runs it."""
+    return graphs.run(_vi_pose_optimization, Rwb0, pwb0, vel0, bias0, Rwb_kf, pwb_kf, vel_kf,
+                      bias_kf, factor, X, uv, inv_sigma2, valid, cam_model, cam_params, Rcb,
+                      tcb, gravity, rounds, its_per_round, chi2_th)
+
+
+def _vi_pose_optimization(Rwb0, pwb0, vel0, bias0, Rwb_kf, pwb_kf, vel_kf, bias_kf, factor, X,
+                          uv, inv_sigma2, valid, cam_model, cam_params, Rcb, tcb, gravity,
+                          rounds, its_per_round, chi2_th) -> VIPoseResult:
+    """The eager body of `vi_pose_optimization`."""
     delta_h = chi2_th ** 0.5
     L9, Lb = _factor_weights(factor)
     f0 = select(factor, 0)
@@ -150,7 +168,18 @@ def vi_pose_optimization_last_frame(Rwb0, pwb0, vel0, bias0, prior: VIPosePrior,
     state under its marginalized prior, the two linked by the
     preintegration and bias random walk edges, the visual edges on the
     current; then marginalize the previous state out of the 30x30 Hessian.
-    Returns (VIPoseResult of the current frame, its VIPosePrior)."""
+    Returns (VIPoseResult of the current frame, its VIPosePrior).  On a
+    card, from a signature's second call on, one captured CUDA graph runs
+    it."""
+    return graphs.run(_vi_pose_optimization_last_frame, Rwb0, pwb0, vel0, bias0, prior, factor,
+                      X, uv, inv_sigma2, valid, cam_model, cam_params, Rcb, tcb, gravity,
+                      rounds, its_per_round, chi2_th)
+
+
+def _vi_pose_optimization_last_frame(Rwb0, pwb0, vel0, bias0, prior, factor, X, uv,
+                                     inv_sigma2, valid, cam_model, cam_params, Rcb, tcb,
+                                     gravity, rounds, its_per_round, chi2_th):
+    """The eager body of `vi_pose_optimization_last_frame`."""
     delta_h = chi2_th ** 0.5
     S = STATE_DIM
     n_dim = 2 * S
