@@ -8,8 +8,10 @@ holds each number named in the configuration's `checks` against its limit
 there; a number that cannot be read fails.  The numbers that a
 configuration does not compare are returned as readings.
 
-  desc_wrong    share of a sampled frame's keypoints whose descriptor differs
-                from the reference's in any bit (largest over the frames)
+  desc_wrong    share of an extraction's keypoints whose descriptor differs
+                from the reference's in any bit, worked out from the image
+                that extraction was given (largest over every extraction of
+                the sampled frames: both images of a pair)
   pose_gap_px   largest shift of a returned inlier's projection between a
                 sampled tracked frame's pose-only optimization and the same
                 schedule worked out in float64 from its start and
@@ -35,6 +37,18 @@ configuration does not compare are returned as readings.
   init_undone   the same of each inertial-only initialization in set-up (the
                 IMU initialization and VIBA1, `optimum.check_imu_init`), with
                 its gravity, scale, velocity and bias gaps as readings
+  stereo_wrong  share of a sampled pair's valid left keypoints whose
+                association (valid or not, the right keypoint matched) or
+                refined right u (beyond 1e-3 px) differs from the
+                reference's, worked out from the two rendered images and the
+                keypoints extracted from them (`reference.check_stereo`;
+                largest over the frames), with the largest right-u gap
+                (`stereo_ur_gap_px`) and relative depth gap
+                (`stereo_depth_rel_gap`) of the keypoints associated alike as
+                readings
+
+The pose-only optimization, the VI pose optimizations and the pair's
+association read the features that tracking used (`Capture.tracked`).
 """
 
 from __future__ import annotations
@@ -65,18 +79,37 @@ def _state(R, p, v, b) -> tuple:
     return tuple(_np(x).astype(np.float64) for x in (R, p, v, b))
 
 
+def _pair(cap, i: int) -> dict:
+    """A pair's association and refinement in frame i, over the valid left
+    keypoints, with the keypoints of both images (the reference works its
+    gates out from the configuration, not from the program's call)."""
+    calls = cap.stereo[i]
+    if "refine" not in calls:
+        raise RuntimeError(f"frame {i}: a pair associated without its refinement")
+    (a, d), (_, out) = calls["match"], calls["refine"]
+    ff_l, ff_r = a["ff_l"], a["ff_r"]
+    if ff_l is not cap.tracked(i):
+        raise RuntimeError(f"frame {i}: the association's left features are not the tracker's")
+    vl, vr = _np(ff_l.valid), _np(ff_r.valid)
+    return dict(xy_l=_np(ff_l.xy)[vl], oct_l=_np(ff_l.octave)[vl], desc_l=_np(ff_l.desc)[vl],
+                xy_r=_np(ff_r.xy)[vr], oct_r=_np(ff_r.octave)[vr], desc_r=_np(ff_r.desc)[vr],
+                ur_matched=_np(d.ur)[vl], valid=_np(out.valid)[vl], ur=_np(out.ur)[vl],
+                depth=_np(out.depth)[vl])
+
+
 def collect(sys_, cap, seq, log, poses, i0: int, seed: int, chk: dict) -> dict:
     picks = sorted(cap.ff_frames & {f.index for f in log})
     feats = {}
     for i in picks:
-        ff = cap.ff.get(i)
-        if ff is not None:
+        for image, ff in cap.ff.get(i, ()):
             v = _np(ff.valid)
-            feats[i] = dict(xy=_np(ff.xy)[v], octave=_np(ff.octave)[v], desc=_np(ff.desc)[v])
+            feats.setdefault(i, []).append(dict(image=_np(image), xy=_np(ff.xy)[v],
+                                                octave=_np(ff.octave)[v], desc=_np(ff.desc)[v]))
+    pairs = {i: _pair(cap, i) for i in picks if i in cap.stereo}
     tracks = {}
     for i, (R0, t0, X, uv, valid, res) in cap.track.items():
         tracks[i] = dict(R0=_np(R0), t0=_np(t0), X=_np(X), uv=_np(uv), valid=_np(valid),
-                         octave=_np(cap.ff[i].octave), R=_np(res.R), t=_np(res.t),
+                         octave=_np(cap.tracked(i).octave), R=_np(res.R), t=_np(res.t),
                          inliers=_np(res.inliers))
     # the window BAs, drawn from the seed
     rng = np.random.default_rng((seed + 1) % (2 ** 63))
@@ -102,7 +135,7 @@ def collect(sys_, cap, seq, log, poses, i0: int, seed: int, chk: dict) -> dict:
                                     H=_np(prior.H).astype(np.float64)), t0=seq.ts[i - 1])
             res = c["out"][0]
         inl = _np(res.inliers)
-        ff = cap.ff[i]
+        ff = cap.tracked(i)
         vis.append(dict(
             frame=i, kind=c["kind"], t1=seq.ts[i], bias0=_np(b0).astype(np.float64),
             R0=_np(R0).astype(np.float64), p0=_np(p0).astype(np.float64),
@@ -128,7 +161,7 @@ def collect(sys_, cap, seq, log, poses, i0: int, seed: int, chk: dict) -> dict:
     m = sys_.map
     new = _np(m.pt_valid) & (_np(m.pt_first_frame) >= i0)
     est = [(f.index, p) for f, p in zip(log, poses) if p is not None]
-    out = dict(feats=feats, tracks=tracks, bas=bas, vis=vis, inits=inits,
+    out = dict(feats=feats, pairs=pairs, tracks=tracks, bas=bas, vis=vis, inits=inits,
                new_points=_np(m.pt_xyz)[new],
                est_index=np.array([e[0] for e in est], np.int64),
                est_R=np.array([e[1][0] for e in est], np.float64).reshape(-1, 3, 3),
@@ -147,9 +180,18 @@ def judge(produced: dict, seq, config: dict) -> dict:
     values = {}
     if produced["feats"]:
         values["desc_wrong"] = max(
-            ref.check_extraction(seq.frames[i], f["xy"], f["octave"], f["desc"],
+            ref.check_extraction(f["image"], f["xy"], f["octave"], f["desc"],
                                  orb["n_levels"], orb["scale_factor"])["desc_wrong"]
-            for i, f in produced["feats"].items())
+            for per in produced["feats"].values() for f in per)
+    if produced.get("pairs"):
+        fx, b = num["cam_params"][0], num["stereo"]["baseline"]
+        gates = ref.stereo_gates(b, num["stereo"]["max_depth_factor"], orb["scale_factor"])
+        got = {i: ref.check_stereo(p, seq.frames[i], seq.right[i], fx, b, gates)
+               for i, p in produced["pairs"].items()}
+        values["stereo_wrong"] = max(g["wrong"] for g in got.values())
+        values["stereo_ur_gap_px"] = max(g["ur_gap_px"] for g in got.values())
+        values["stereo_depth_rel_gap"] = max(g["depth_rel_gap"] for g in got.values())
+        values["stereo_each"] = [(i, g["wrong"], g["n"], g["n_assoc"]) for i, g in got.items()]
     gaps = []
     for i, t in produced["tracks"].items():
         if t["inliers"].sum() < 6:

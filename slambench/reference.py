@@ -15,7 +15,10 @@ out again everything it compares them with:
   inliers;
 * the trajectory's similarity alignment to the true path (Umeyama) and its
   RMSE, scale and tilt;
-* the height of the map's new points above the true scene surface.
+* the height of the map's new points above the true scene surface;
+* the rectified stereo association of each sampled pair (`stereo_association`,
+  `refine_right_u`), from the two images the benchmark rendered and the
+  keypoints the program extracted from them.
 """
 
 from __future__ import annotations
@@ -342,3 +345,155 @@ def surface_height(Xw: np.ndarray, mesas) -> np.ndarray:
         over = (Xw[:, 0] >= x0) & (Xw[:, 0] <= x1) & (Xw[:, 1] >= y0) & (Xw[:, 1] <= y1)
         d = np.where(over, np.minimum(d, np.abs(Xw[:, 2] - zm)), d)
     return d
+
+
+# ------------------------------------------------------ the stereo association
+TH_HIGH = 100          # ORBmatcher::TH_HIGH
+STEREO_NN_RATIO = (9, 10)
+
+
+def stereo_gates(baseline: float, max_depth_factor: float, scale_factor: float) -> dict:
+    """The association's settings for a configuration: the row band of
+    2 px at octave 0 (Frame::ComputeStereoMatches' 2 * scale factor^octave),
+    depths from 0.1 m to three times the close-point horizon
+    (max_depth_factor baselines, the stereo Systems' far gate), the
+    (2 * 5 + 1)^2 patch of ComputeStereoMatches and the sweep of +-2 px that
+    the port's `features/stereo.py` documents."""
+    return dict(row_tol=2.0, min_depth=0.1, max_depth=float(max_depth_factor) * baseline * 3,
+                scale_factor=float(scale_factor), w=5, r_search=2)
+
+
+def hamming(desc_a: np.ndarray, desc_b: np.ndarray, block: int = 256) -> np.ndarray:
+    """(n, m) Hamming distances of (n, 8) and (m, 8) int32 bit patterns: the
+    popcount of their XOR, byte by byte."""
+    pop = np.array([bin(v).count("1") for v in range(256)], np.int64)
+    a = np.ascontiguousarray(desc_a, np.int32).view(np.uint8)
+    b = np.ascontiguousarray(desc_b, np.int32).view(np.uint8)
+    out = np.empty((a.shape[0], b.shape[0]), np.int64)
+    for r in range(0, a.shape[0], block):
+        out[r:r + block] = pop[a[r:r + block, None, :] ^ b[None, :, :]].sum(-1)
+    return out
+
+
+def stereo_association(xy_l, oct_l, desc_l, xy_r, oct_r, desc_r, fx: float, baseline: float,
+                       row_tol: float, min_depth: float, max_depth: float,
+                       scale_factor: float) -> dict:
+    """The association of a rectified pair's keypoints (ORB-SLAM3's
+    Frame::ComputeStereoMatches candidate search, with the port's documented
+    gates, `features/stereo.py`): a right keypoint is a candidate for a left
+    one on the same row within row_tol * scale_factor^octave, at a
+    disparity that [min_depth, max_depth] allows, and at most one octave
+    apart; the nearest candidate by Hamming distance is kept when it is at
+    most TH_HIGH and under 0.9 of the second nearest (in integers: 10 best <
+    9 second); a right keypoint claimed by several left ones goes to the one
+    with the lowest (distance, index); the depth fx b / d must lie inside
+    the range.
+
+    The gates compare the float32 coordinates in float32, the precision the
+    configuration states: keypoints above octave 0 sit on their level's
+    grid, so many pairs lie on a row band's very edge (two octave-1
+    keypoints two of their rows apart are 2 * 1.2 px apart, as wide as the
+    band), where the coordinates' rounding decides, and float64 would
+    decide some of them otherwise.  Returns per left keypoint `j` (the right keypoint, -1 if none), `valid`
+    and `ur` (the right keypoint's u, -1 if none)."""
+    f32 = np.float32
+    xy_l, xy_r = np.asarray(xy_l, f32), np.asarray(xy_r, f32)
+    oct_l, oct_r = np.asarray(oct_l, np.int64), np.asarray(oct_r, np.int64)
+    n, m = xy_l.shape[0], xy_r.shape[0]
+    if m == 0:
+        return dict(j=np.full(n, -1, np.int64), valid=np.zeros(n, bool), ur=np.full(n, -1.0))
+    fb = f32(fx * baseline)
+    du = xy_l[:, None, 0] - xy_r[None, :, 0]
+    dv = np.abs(xy_l[:, None, 1] - xy_r[None, :, 1])
+    tol = f32(row_tol) * np.power(f32(scale_factor), oct_l.astype(f32))
+    mask = (dv <= tol[:, None]) & (du >= f32(fx * baseline / max_depth)) & \
+        (du <= f32(fx * baseline / min_depth))
+    mask &= np.abs(oct_l[:, None] - oct_r[None, :]) <= 1
+    big = 1 << 20                     # no candidate: above any distance
+    d = np.where(mask, hamming(desc_l, desc_r), big)
+    rows = np.arange(n)
+    best_j = np.argmin(d, axis=1)
+    best = d[rows, best_j]
+    d2 = d.copy()
+    d2[rows, best_j] = big
+    second = d2.min(axis=1)
+    num, den = STEREO_NN_RATIO
+    ok = (best <= TH_HIGH) & (den * best < num * second)
+    # a right keypoint claimed twice goes to the lowest (distance, left index)
+    order = np.lexsort((rows, best))
+    taken = np.zeros(m, bool)
+    for i in order[ok[order]]:
+        if taken[best_j[i]]:
+            ok[i] = False
+        taken[best_j[i]] = True
+    ur = xy_r[best_j, 0]
+    depth = fb / np.maximum(xy_l[:, 0] - ur, f32(1e-3))
+    ok &= (depth > f32(min_depth)) & (depth < f32(max_depth))
+    return dict(j=np.where(ok, best_j, -1), valid=ok, ur=np.where(ok, ur.astype(np.float64), -1.0))
+
+
+def refine_right_u(img_l: np.ndarray, img_r: np.ndarray, xy_l, ur, valid, w: int = 5,
+                   r_search: int = 2) -> np.ndarray:
+    """The subpixel right u of each associated left keypoint (the sweep and
+    parabola of ORB-SLAM3's Frame::ComputeStereoMatches, with the port's
+    documented SSD): the (2w+1)^2 patch around the rounded left keypoint
+    against the right image's patches on the same rows, shifted over
+    [-r_search, r_search] around the rounded matched u; the SSD per shift in
+    integers, the first of tied minima, a parabola through the minimum and
+    its neighbours.  A minimum on the sweep's edge, or a vertex that moved
+    more than r_search + 1, keeps the matched u.  -1 where not associated."""
+    L = np.asarray(img_l, np.int64)
+    Rt = np.asarray(img_r, np.int64)
+    h, wid = L.shape
+    s, sw = 2 * w + 1, 2 * w + 1 + 2 * r_search
+    xy_l = np.asarray(xy_l, np.float64)
+    ur = np.asarray(ur, np.float64)
+    out = np.where(valid, ur, -1.0)
+    for i in np.flatnonzero(valid):
+        y = int(np.clip(np.rint(xy_l[i, 1]) - w, 0, h - s))
+        xl0 = int(np.clip(np.rint(xy_l[i, 0]) - w, 0, wid - s))
+        xr0 = int(np.clip(np.rint(ur[i]) - w - r_search, 0, wid - sw))
+        Pl = L[y:y + s, xl0:xl0 + s]
+        Pr = Rt[y:y + s, xr0:xr0 + sw]
+        ssd = np.array([np.sum((Pr[:, k:k + s] - Pl) ** 2) for k in range(2 * r_search + 1)])
+        best = int(np.argmin(ssd))
+        bc = min(max(best, 1), 2 * r_search - 1)
+        if best != bc:
+            continue
+        c0, c1, c2 = (float(ssd[bc + k]) for k in (-1, 0, 1))
+        denom = c0 + c2 - 2.0 * c1
+        frac = min(max(0.5 * (c0 - c2) / denom, -1.0), 1.0) if abs(denom) > 1e-6 else 0.0
+        u = xr0 + bc + frac + w
+        if abs(u - ur[i]) <= r_search + 1.0:
+            out[i] = u
+    return out
+
+
+def check_stereo(pair: dict, img_l: np.ndarray, img_r: np.ndarray, fx: float,
+                 baseline: float, gates: dict) -> dict:
+    """A sampled pair's association and refinement against the reference's,
+    over the pair's valid left keypoints: `wrong`, the share whose validity,
+    matched right keypoint (its u as matched) or refined right u (beyond
+    1e-3 px; -1 on both sides where not associated) differs; and, over the
+    keypoints both associate alike, the largest gap of the refined right u
+    (px) and of the depth relative to fx b / (u_l - u_r) in float64.
+    `gates`: `stereo_gates`' settings."""
+    p = gates
+    ref = stereo_association(pair["xy_l"], pair["oct_l"], pair["desc_l"], pair["xy_r"],
+                             pair["oct_r"], pair["desc_r"], fx, baseline, p["row_tol"],
+                             p["min_depth"], p["max_depth"], p["scale_factor"])
+    ur = refine_right_u(img_l, img_r, pair["xy_l"], ref["ur"], ref["valid"], p["w"],
+                        p["r_search"])
+    got_valid = np.asarray(pair["valid"], bool)
+    got_ur = np.where(got_valid, np.asarray(pair["ur"], np.float64), -1.0)
+    same = (got_valid == ref["valid"]) & \
+        (np.where(got_valid, np.asarray(pair["ur_matched"], np.float64), -1.0) == ref["ur"])
+    gap = np.abs(got_ur - ur)
+    wrong = ~same | (gap > 1e-3)
+    both = same & ref["valid"]
+    n = max(int(got_valid.shape[0]), 1)
+    depth = fx * baseline / np.maximum(np.asarray(pair["xy_l"], np.float64)[:, 0] - ur, 1e-3)
+    rel = np.abs(np.asarray(pair["depth"], np.float64) - depth) / depth
+    return dict(wrong=float(np.sum(wrong)) / n, n=n, n_assoc=int(np.sum(ref["valid"])),
+                ur_gap_px=float(np.max(gap[both])) if both.any() else 0.0,
+                depth_rel_gap=float(np.max(rel[both])) if both.any() else 0.0)

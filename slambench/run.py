@@ -16,10 +16,11 @@ The run:
    initialized, enough keyframes, in the inertial cell the IMU
    initialized): that is set-up, `setup_s` from process start;
 2. feeds the next frames back to back, each after the previous one returned
-   its pose (`grab_imu` for each 200 Hz sample of the interval, then
-   `track_monocular`), for `--seconds`: `fps` is the frames over the
-   window's seconds and `frame_ms_p97` the 97th percentile of the frames'
-   latencies (the call until the pose is back on the host);
+   its pose (`grab_imu` for each 200 Hz sample of the interval, then the
+   system's entry), for `--seconds`, and at least through the frames the
+   checks draw from: `fps` is the frames over the
+   window's seconds (each frame's latency, the call until the pose is back
+   on the host, goes to the per-layer readers);
 3. with `--trace 1` the window runs with ranges around the stages that the
    cell's per-layer metrics name (host clock), then a profiled slice of the
    next frames (CUDA activity only) and a few extractions under the
@@ -40,11 +41,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
 import sys
 import time
+from typing import Any, NamedTuple
 
 import numpy as np
 
@@ -105,26 +108,44 @@ class Frame:
     imu_stage: bool
 
 
+class Extraction(NamedTuple):
+    """One `extract` call: the image tensor it was given (None outside the
+    frames `desc_wrong` samples) and its FeatureFrame."""
+    image: Any
+    ff: Any
+
+
 class Capture:
     """Keeps what the timed path produced in chosen frames, by reference
-    (the port builds new tensors and writes none in place): the extraction's
-    FeatureFrame, the pose-only optimization's points, keypoints and answer
-    (`solver/pose_opt.pose_optimization`, inside tracking), the window BA's
-    problem and answer (`solver/ba_grid.bundle_adjust_grid`), the VI pose
-    optimizations' arguments and answers (`solver/vi_pose_opt`), and every
-    inertial-only initialization (`solver/inertial.inertial_only_init`) with
-    the keyframes its factors join."""
+    (the port builds new tensors and writes none in place): every extraction
+    of the frame in call order with the image it was given, the pose-only
+    optimization's points, keypoints and answer (`solver/pose_opt.
+    pose_optimization`, inside tracking), the window BA's problem and answer
+    (`solver/ba_grid.bundle_adjust_grid`), the VI pose optimizations'
+    arguments and answers (`solver/vi_pose_opt`), every inertial-only
+    initialization (`solver/inertial.inertial_only_init`) with the keyframes
+    its factors join, and a pair's association and its refinement
+    (`features/stereo.stereo_match`, `refine_disparity`) with their
+    arguments."""
 
     def __init__(self, sys_):
         self.sys = sys_
         self.ff_frames, self.track_frames = set(), set()
         self.ba_frames, self.vi_frames = set(), set()
         self.ff, self.track, self.ba, self.vi, self.init = {}, {}, [], [], []
+        self.stereo = {}
         self.profile_extract = None      # a list: profile every extraction into it
+
+    def tracked(self, i: int):
+        """The FeatureFrame that tracking used in frame i: every System
+        extracts the image it tracks first (a pair's left, then its right),
+        which `checks` confirms where the association names its left
+        features."""
+        return self.ff[i][0].ff
 
     def install(self, ranges):
         import torch
-        from orbslam3_tpu_torch.features import extractor
+        from orbslam3_tpu_torch.features import extractor, stereo
         from orbslam3_tpu_torch.solver import ba_grid, inertial, pose_opt, vi_pose_opt
         extract, pose = extractor.extract, pose_opt.pose_optimization
         ba, init = ba_grid.bundle_adjust_grid, inertial.inertial_only_init
@@ -144,8 +165,24 @@ class Capture:
                 rows = trace.range_table(trace.chrome_trace(prof), ("extract",))[0]
                 self.profile_extract.append(rows["extract"][2] / 1e3)
             if self.sys.frame_id in self.ff_frames or self.sys.frame_id in self.vi_frames:
-                self.ff[self.sys.frame_id] = out
+                # the image only where `desc_wrong` reads it: each one kept
+                # adds to the peak the window reads
+                image = args[0] if args else kwargs["img"]
+                self.ff.setdefault(self.sys.frame_id, []).append(
+                    Extraction(image if self.sys.frame_id in self.ff_frames else None, out))
             return out
+
+        def stereo_cap(fn, key):
+            sig = inspect.signature(fn)
+
+            def cap(*args, **kwargs):
+                out = fn(*args, **kwargs)
+                if self.sys.frame_id in self.ff_frames:
+                    bound = sig.bind(*args, **kwargs)
+                    bound.apply_defaults()
+                    self.stereo.setdefault(self.sys.frame_id, {})[key] = (bound.arguments, out)
+                return out
+            return cap
 
         def pose_cap(R0, t0, X, uv, inv_sigma2, valid, *args, **kwargs):
             out = pose(R0, t0, X, uv, inv_sigma2, valid, *args, **kwargs)
@@ -181,6 +218,8 @@ class Capture:
         ranges.replace(vi_pose_opt, "vi_pose_optimization", vi_cap(vi_kf, "lastkf"))
         ranges.replace(vi_pose_opt, "vi_pose_optimization_last_frame", vi_cap(vi_lf, "lastframe"))
         ranges.replace(inertial, "inertial_only_init", init_cap)
+        ranges.replace(stereo, "stereo_match", stereo_cap(stereo.stereo_match, "match"))
+        ranges.replace(stereo, "refine_disparity", stereo_cap(stereo.refine_disparity, "refine"))
 
 
 def warm_up(sys_, feed, seq, spec: dict) -> int:
@@ -200,9 +239,10 @@ def warm_up(sys_, feed, seq, spec: dict) -> int:
 
 
 def run_frames(sys_, feed, seq, i: int, seconds: float, sync, ranges=None,
-               stop_frames=None):
-    """Frames back to back from `i` until `seconds` have passed (or, with
-    `stop_frames`, that many frames); returns (frames, poses, seconds)."""
+               stop_frames=None, min_frames: int = 0):
+    """Frames back to back from `i` until `seconds` have passed and at least
+    `min_frames` frames have run (or until `stop_frames(frames)` says so);
+    returns (frames, poses, seconds)."""
     log, poses = [], []
     t_start = time.perf_counter()
     while True:
@@ -219,17 +259,15 @@ def run_frames(sys_, feed, seq, i: int, seconds: float, sync, ranges=None,
                          getattr(sys_, "last_imu_stage_frame", -1) != stage))
         poses.append(pose)
         i += 1
-        if (stop_frames is None and t1 - t_start >= seconds) or \
+        if (stop_frames is None and t1 - t_start >= seconds and len(log) >= min_frames) or \
                 (stop_frames is not None and stop_frames(log)):
             sync()
             return log, poses, time.perf_counter() - t_start
 
 
 def end_to_end(log, window_s: float) -> dict:
-    """`fps`: every frame of the window over the window's seconds;
-    `frame_ms_p97`: the 97th percentile of all its frames' latencies."""
-    return dict(fps=len(log) / window_s,
-                frame_ms_p97=float(np.percentile([f.seconds * 1e3 for f in log], 97)))
+    """`fps`: every frame of the window over the window's seconds."""
+    return dict(fps=len(log) / window_s)
 
 
 def frame_notes(log) -> dict:
@@ -317,7 +355,11 @@ def _run(spec, seed, seconds, trace, seq, ranges, readers, dev, sync, overrides)
 
     setup_s = process_age()
     ranges.on = trace
-    log, poses, window_s = run_frames(sys_, feed, seq, i0, seconds, sync, ranges)
+    # the window holds at least the frames the checks draw from, however
+    # slow the host: a check with nothing to read fails the run
+    log, poses, window_s = run_frames(
+        sys_, feed, seq, i0, seconds, sync, ranges,
+        min_frames=max(chk["from_first"], chk.get("keyframes_from_first", 0)))
     ranges.on = False
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
 
@@ -391,14 +433,13 @@ def _traced_slices(sys_, feed, seq, i, spec: dict, cap, sync, tr, config) -> dic
     orb = num["orb"]
     bound_s = []
     for f in log:
-        ff = cap.ff.get(f.index)
-        if ff is None:
-            continue
-        xy = ff.xy.cpu().numpy()
-        k, hw = kernels.atlas_coords(xy, ff.octave.cpu().numpy(), num["image_hw"],
-                                     orb["n_levels"], orb["scale_factor"])
-        bound_s.append(kernels.orb_describe_bytes(k, ff.angle.cpu().numpy(), hw)
-                       / kernels.PEAK_BYTES_PER_S)
+        # one `orb_describe` launch per extraction
+        for _, ff in cap.ff.get(f.index, ()):
+            xy = ff.xy.cpu().numpy()
+            k, hw = kernels.atlas_coords(xy, ff.octave.cpu().numpy(), num["image_hw"],
+                                         orb["n_levels"], orb["scale_factor"])
+            bound_s.append(kernels.orb_describe_bytes(k, ff.angle.cpu().numpy(), hw)
+                           / kernels.PEAK_BYTES_PER_S)
     cap.profile_extract = []
     i += len(log)
     run_frames(sys_, feed, seq, i, 0.0, sync,
@@ -441,7 +482,7 @@ def main(argv=None) -> int:
         return 3
     n = out["notes"]
     print(f"window: {n['frames']} frames in {n['window_s']:.3f} s ({n['keyframes']} keyframe "
-          f"frames), the p97 over {n['frames']} samples; set-up {n['setup_s']:.2f} s to frame "
+          f"frames); set-up {n['setup_s']:.2f} s to frame "
           f"{n['first_frame']} ({n['init']}); {n['power'] or ''}", file=sys.stderr)
     for name, v in n["readings"].items():
         print(f"reading {name}: {v!r} (not compared)", file=sys.stderr)
